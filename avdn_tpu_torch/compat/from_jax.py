@@ -1,0 +1,190 @@
+"""JAX parameters → the port's state dicts, and reference checkpoints.
+
+The port's own copy of the numpy state-dict converters of
+``avdn_tpu/compat/torch_export.py`` (``bert_state_dict``,
+``darknet_state_dict``, ``et_state_dict``): they turn the JAX package's
+parameters, given as nested dicts of numpy arrays, into the reference-format
+state dicts that the port's modules load with ``strict=True``.
+:func:`load_reference_agent` reads the ``.pt`` agent checkpoint that
+``export_reference_agent`` and ``tools/export_torch_ckpt.py`` write
+(``{lang_model, vision_model, vln_model}`` each with a ``state_dict``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _tt(w):  # flax kernel (in, out) -> torch Linear weight (out, in)
+    return np.asarray(w).T
+
+
+def _n(w):
+    return np.asarray(w)
+
+
+def _conv(w):  # flax HWIO -> torch OIHW
+    return np.transpose(np.asarray(w), (3, 2, 0, 1))
+
+
+def _p(tree):
+    return tree["params"] if "params" in tree else tree
+
+
+# ---------------------------------------------------------------- BERT ----
+
+
+def bert_state_dict(bert_vars: Dict[str, Any],
+                    num_layers: int = 12) -> Dict[str, np.ndarray]:
+    """``BertLanguageEncoder`` params → ``CustomBERTModel`` state_dict
+    (inverse of torch_import.bert_params_from_torch)."""
+    p = _p(bert_vars)
+    sd: Dict[str, np.ndarray] = {}
+    emb = "bert.embeddings."
+    sd[emb + "word_embeddings.weight"] = _n(p["word_embeddings"]["embedding"])
+    sd[emb + "position_embeddings.weight"] = _n(
+        p["position_embeddings"]["embedding"]
+    )
+    sd[emb + "token_type_embeddings.weight"] = _n(
+        p["token_type_embeddings"]["embedding"]
+    )
+    sd[emb + "LayerNorm.weight"] = _n(p["embeddings_norm"]["scale"])
+    sd[emb + "LayerNorm.bias"] = _n(p["embeddings_norm"]["bias"])
+    for i in range(num_layers):
+        li = p[f"layer_{i}"]
+        pre = f"bert.encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            sd[pre + f"attention.self.{name}.weight"] = _tt(
+                li["attention"][name]["kernel"]
+            )
+            sd[pre + f"attention.self.{name}.bias"] = _n(
+                li["attention"][name]["bias"]
+            )
+        sd[pre + "attention.output.dense.weight"] = _tt(
+            li["attention_output"]["kernel"]
+        )
+        sd[pre + "attention.output.dense.bias"] = _n(
+            li["attention_output"]["bias"]
+        )
+        sd[pre + "attention.output.LayerNorm.weight"] = _n(
+            li["attention_norm"]["scale"]
+        )
+        sd[pre + "attention.output.LayerNorm.bias"] = _n(
+            li["attention_norm"]["bias"]
+        )
+        sd[pre + "intermediate.dense.weight"] = _tt(li["intermediate"]["kernel"])
+        sd[pre + "intermediate.dense.bias"] = _n(li["intermediate"]["bias"])
+        sd[pre + "output.dense.weight"] = _tt(li["output"]["kernel"])
+        sd[pre + "output.dense.bias"] = _n(li["output"]["bias"])
+        sd[pre + "output.LayerNorm.weight"] = _n(li["output_norm"]["scale"])
+        sd[pre + "output.LayerNorm.bias"] = _n(li["output_norm"]["bias"])
+    sd["bert.pooler.dense.weight"] = _tt(p["pooler"]["kernel"])
+    sd["bert.pooler.dense.bias"] = _n(p["pooler"]["bias"])
+    # head Sequential(Linear, ReLU, Dropout, Linear, ReLU) -> indices 0, 3
+    sd["linears.0.weight"] = _tt(p["cls_head"]["dense_0"]["kernel"])
+    sd["linears.0.bias"] = _n(p["cls_head"]["dense_0"]["bias"])
+    sd["linears.3.weight"] = _tt(p["cls_head"]["dense_1"]["kernel"])
+    sd["linears.3.bias"] = _n(p["cls_head"]["dense_1"]["bias"])
+    return sd
+
+
+# ------------------------------------------------------------- Darknet ----
+
+
+def darknet_state_dict(darknet_vars: Dict[str, Any],
+                       block_dicts) -> Dict[str, np.ndarray]:
+    """NHWC Darknet variables → reference ``module_list.{i}.*`` state_dict
+    (src/models/dark_net.py:17-33 naming)."""
+    params = darknet_vars["params"]
+    stats = darknet_vars.get("batch_stats", {})
+    sd: Dict[str, np.ndarray] = {}
+    for i, b in enumerate(block_dicts[1:]):
+        if b["type"] != "convolutional":
+            continue
+        conv = params[f"conv_{i}"]
+        sd[f"module_list.{i}.conv_{i}.weight"] = _conv(conv["kernel"])
+        if int(b.get("batch_normalize", "0")):
+            bn_key = f"module_list.{i}.batch_norm_{i}."
+            sd[bn_key + "weight"] = _n(params[f"bn_{i}"]["scale"])
+            sd[bn_key + "bias"] = _n(params[f"bn_{i}"]["bias"])
+            sd[bn_key + "running_mean"] = _n(stats[f"bn_{i}"]["mean"])
+            sd[bn_key + "running_var"] = _n(stats[f"bn_{i}"]["var"])
+            sd[bn_key + "num_batches_tracked"] = np.asarray(0, np.int64)
+        else:
+            sd[f"module_list.{i}.conv_{i}.bias"] = _n(conv["bias"])
+    return sd
+
+
+# ------------------------------------------------------------------ ET ----
+
+
+def _mlp_head_to_seq(sd, head, prefix, linear_indices):
+    for j, li in enumerate(linear_indices):
+        sd[f"{prefix}.{li}.weight"] = _tt(head[f"dense_{j}"]["kernel"])
+        sd[f"{prefix}.{li}.bias"] = _n(head[f"dense_{j}"]["bias"])
+
+
+def et_state_dict(et_vars: Dict[str, Any],
+                  num_layers: int = 2) -> Dict[str, np.ndarray]:
+    """``HAATransformer`` params → reference ET state_dict
+    (src/models/ET_haa.py:77-119 naming; dead modules omitted — the
+    reference loader's key intersection skips them)."""
+    p = _p(et_vars)
+    sd: Dict[str, np.ndarray] = {}
+    sd["attention_layer_vision.linear_in.weight"] = _tt(
+        p["vision_attention"]["linear_in"]["kernel"]
+    )
+    sd["attention_layer_vision.linear_out.weight"] = _tt(
+        p["vision_attention"]["linear_out"]["kernel"]
+    )
+    sd["fc2.weight"] = _tt(p["frame_proj"]["kernel"])
+    sd["fc2.bias"] = _n(p["frame_proj"]["bias"])
+    sd["direction_embedding.weight"] = _tt(p["direction_embedding"]["kernel"])
+    sd["direction_embedding.bias"] = _n(p["direction_embedding"]["bias"])
+    sd["encoder_vl.enc_layernorm.weight"] = _n(p["input_norm"]["scale"])
+    sd["encoder_vl.enc_layernorm.bias"] = _n(p["input_norm"]["bias"])
+    for i in range(num_layers):
+        li = p[f"encoder_layer_{i}"]
+        pre = f"encoder_vl.enc_transformer.layers.{i}."
+        sd[pre + "self_attn.in_proj_weight"] = _tt(li["in_proj"]["kernel"])
+        sd[pre + "self_attn.in_proj_bias"] = _n(li["in_proj"]["bias"])
+        sd[pre + "self_attn.out_proj.weight"] = _tt(li["out_proj"]["kernel"])
+        sd[pre + "self_attn.out_proj.bias"] = _n(li["out_proj"]["bias"])
+        sd[pre + "linear1.weight"] = _tt(li["linear1"]["kernel"])
+        sd[pre + "linear1.bias"] = _n(li["linear1"]["bias"])
+        sd[pre + "linear2.weight"] = _tt(li["linear2"]["kernel"])
+        sd[pre + "linear2.bias"] = _n(li["linear2"]["bias"])
+        sd[pre + "norm1.weight"] = _n(li["norm1"]["scale"])
+        sd[pre + "norm1.bias"] = _n(li["norm1"]["bias"])
+        sd[pre + "norm2.weight"] = _n(li["norm2"]["scale"])
+        sd[pre + "norm2.bias"] = _n(li["norm2"]["bias"])
+    _mlp_head_to_seq(sd, p["action_head"], "decoder_2_action_full", (0, 3, 6))
+    sd["fc.0.weight"] = _tt(p["saliency_proj"]["kernel"])
+    sd["fc.0.bias"] = _n(p["saliency_proj"]["bias"])
+    return sd
+
+
+# --------------------------------------------------------------- agent ----
+
+
+def load_reference_agent(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Read an ET agent checkpoint ``.pt`` → ``{"lang_model", "vision_model",
+    "vln_model"}`` state dicts (CPU tensors)."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    missing = {"lang_model", "vision_model", "vln_model"} - set(blob)
+    if missing:
+        raise KeyError(f"{path}: not an ET agent checkpoint (missing "
+                       f"{sorted(missing)})")
+    return {k: dict(blob[k]["state_dict"])
+            for k in ("lang_model", "vision_model", "vln_model")}
+
+
+def load_agent_weights(models, state_dicts: Dict[str, Dict[str, Any]]) -> None:
+    """Load ``{lang_model, vision_model, vln_model}`` state dicts (numpy
+    arrays or tensors) strictly into ``(bert, darknet, vln)``."""
+    for model, key in zip(models, ("lang_model", "vision_model", "vln_model")):
+        model.load_state_dict({k: torch.as_tensor(np.array(v))
+                               for k, v in state_dicts[key].items()}, strict=True)

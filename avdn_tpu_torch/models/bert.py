@@ -1,0 +1,177 @@
+"""BERT-base language tower (torch counterpart of ``avdn_tpu/models/bert.py``).
+
+The reference wraps HuggingFace ``bert-base-uncased`` with a small
+768→64→49 ReLU head on the pooler output (``CustomBERTModel``,
+src/models/vln_model.py:128-159). The encoder is written out here with the
+HF/reference parameter names (``bert.embeddings.*``,
+``bert.encoder.layer.{i}.*``, ``bert.pooler.dense``, ``linears.{0,3}``), so
+``compat/from_jax.py:bert_state_dict`` loads strictly.
+
+Returns the reference's triple: token features (B, L, 768), the 49-d head
+output (queries the visual spatial attention), and the pooler vector.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from avdn_tpu_torch.models.layers import MLPHead
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    head_dims: tuple = (64, 49)  # the CustomBERTModel extra head
+
+    @staticmethod
+    def tiny():
+        """Small config for tests: same topology, 2 layers, 128 wide."""
+        return BertConfig(vocab_size=1024, hidden_size=128, num_layers=2,
+                          num_heads=4, intermediate_size=256, max_position=128)
+
+
+class _Embeddings(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size)
+        self.position_embeddings = nn.Embedding(c.max_position, c.hidden_size)
+        self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
+        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+
+    def forward(self, input_ids):
+        L = input_ids.shape[1]
+        pos = torch.arange(L, device=input_ids.device)[None, :]
+        x = (self.word_embeddings(input_ids) + self.position_embeddings(pos)
+             + self.token_type_embeddings(torch.zeros_like(input_ids)))
+        return self.LayerNorm(x)
+
+
+class _SelfAttention(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.num_heads = c.num_heads
+        self.query = nn.Linear(c.hidden_size, c.hidden_size)
+        self.key = nn.Linear(c.hidden_size, c.hidden_size)
+        self.value = nn.Linear(c.hidden_size, c.hidden_size)
+
+    def forward(self, x, bias):
+        B, S, D = x.shape
+        H = self.num_heads
+        hd = D // H
+
+        def heads(t):
+            return t.reshape(B, S, H, hd).transpose(1, 2)
+
+        q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
+        logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(hd)
+        if bias is not None:
+            logits = logits + bias
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+        return out.transpose(1, 2).reshape(B, S, D)
+
+
+class _DenseNorm(nn.Module):
+    """Dense → residual → LayerNorm (HF ``BertSelfOutput`` / ``BertOutput``
+    in eval mode)."""
+
+    def __init__(self, d_in: int, c: BertConfig):
+        super().__init__()
+        self.dense = nn.Linear(d_in, c.hidden_size)
+        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+
+    def forward(self, h, residual):
+        return self.LayerNorm(residual + self.dense(h))
+
+
+class _Attention(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.self = _SelfAttention(c)
+        self.output = _DenseNorm(c.hidden_size, c)
+
+    def forward(self, x, bias):
+        return self.output(self.self(x, bias), x)
+
+
+class _Intermediate(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.dense = nn.Linear(c.hidden_size, c.intermediate_size)
+
+    def forward(self, x):
+        return F.gelu(self.dense(x))  # exact erf GELU
+
+
+class _Layer(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.attention = _Attention(c)
+        self.intermediate = _Intermediate(c)
+        self.output = _DenseNorm(c.intermediate_size, c)
+
+    def forward(self, x, bias):
+        x = self.attention(x, bias)
+        return self.output(self.intermediate(x), x)
+
+
+class _Encoder(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.layer = nn.ModuleList([_Layer(c) for _ in range(c.num_layers)])
+
+
+class _Pooler(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.dense = nn.Linear(c.hidden_size, c.hidden_size)
+
+    def forward(self, x):
+        return torch.tanh(self.dense(x[:, 0]))
+
+
+class _BertModel(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.embeddings = _Embeddings(c)
+        self.encoder = _Encoder(c)
+        self.pooler = _Pooler(c)
+
+
+class BertLanguageEncoder(nn.Module):
+    """BERT encoder + pooler + the reference's 49-d head.
+
+    ``forward(input_ids (B, L), attention_mask (B, L))`` →
+    ``(sequence (B, L, D), head49 (B, 49), pooled (B, D))`` — the triple of
+    ``CustomBERTModel.forward`` (src/models/vln_model.py:148-159).
+    """
+
+    def __init__(self, cfg: BertConfig = BertConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.bert = _BertModel(cfg)
+        self.linears = MLPHead(cfg.hidden_size, cfg.head_dims, relu_last=True)
+
+    def forward(self, input_ids, attention_mask=None):
+        x = self.bert.embeddings(input_ids)
+        bias = None
+        if attention_mask is not None:
+            # HF convention: additive bias on padded keys
+            bias = torch.where(attention_mask.bool(), 0.0, -1e9)[:, None, None, :]
+            bias = bias.to(x.dtype)
+        for layer in self.bert.encoder.layer:
+            x = layer(x, bias)
+        pooled = self.bert.pooler(x)
+        return x, self.linears(pooled), pooled

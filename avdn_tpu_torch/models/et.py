@@ -1,0 +1,115 @@
+"""HAA-Transformer ("ET") — the episodic-transformer model family (torch
+counterpart of ``avdn_tpu/models/et.py``).
+
+The reference ET (src/models/ET_haa.py:77-184) + EncoderVL trunk
+(src/models/enc_vl.py:8-83) as one fixed-shape module with the reference's
+parameter names:
+
+* history is padded to a static ``T`` steps;
+* the per-step language-conditioned spatial attention over Darknet features
+  is batched over time (the reference loops in python,
+  src/models/ET_haa.py:139-142);
+* readout follows the reference: the *visual* token at the batch-max valid
+  step feeds the saliency head and the *direction* token there feeds the
+  action head (src/models/ET_haa.py:157-167).
+
+Outputs: action (B, 4) = (Δx ratio, Δy ratio, altitude, progress) and
+saliency (B, 224, 224).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from avdn_tpu_torch.models.layers import (
+    MLPHead,
+    SoftDotAttention,
+    TransformerEncoderLayer,
+    add_haa_pos_encoding,
+    haa_attention_mask,
+    saliency_upsample,
+    sinusoidal_pos_encoding,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ETConfig:
+    demb: int = 768
+    encoder_heads: int = 12
+    encoder_layers: int = 2
+    spatial_dim: int = 49  # 7x7 darknet grid
+    pos_max_len: int = 1250
+    saliency_hw: int = 224
+
+
+class _EncoderVL(nn.Module):
+    def __init__(self, c: ETConfig):
+        super().__init__()
+        self.enc_layernorm = nn.LayerNorm(c.demb, eps=1e-5)
+        self.enc_transformer = nn.Module()
+        self.enc_transformer.layers = nn.ModuleList([
+            TransformerEncoderLayer(c.demb, c.encoder_heads, c.demb)
+            for _ in range(c.encoder_layers)
+        ])
+
+
+class HAATransformer(nn.Module):
+    def __init__(self, cfg: ETConfig = ETConfig()):
+        super().__init__()
+        c = cfg
+        self.cfg = cfg
+        self.attention_layer_vision = SoftDotAttention(c.spatial_dim)
+        self.fc2 = nn.Linear(c.spatial_dim, c.demb)  # frame projection
+        self.direction_embedding = nn.Linear(2, c.demb)
+        self.encoder_vl = _EncoderVL(c)
+        self.decoder_2_action_full = MLPHead(c.demb, (256, 32, 4))
+        self.fc = nn.Sequential(nn.Linear(c.demb, 64), nn.ReLU())  # saliency
+        self.register_buffer(
+            "pe", sinusoidal_pos_encoding(c.pos_max_len, c.demb), persistent=False)
+
+    def forward(
+        self,
+        lang,          # (B, L, demb) BERT token features
+        lang_cls,      # (B, 49) BERT 49-d head (spatial attention query)
+        frames,        # (B, T, C, 49) darknet features, channel-major
+        directions,    # (B, T, 2) (sin, cos) headings
+        lengths,       # (B,) valid history length per item (>= 1)
+    ):
+        c = self.cfg
+        B, T = frames.shape[0], frames.shape[1]
+        L = lang.shape[1]
+
+        # ---- language-conditioned spatial pooling of each history frame ----
+        flat_frames = frames.reshape(B * T, frames.shape[2], c.spatial_dim)
+        flat_query = lang_cls.repeat_interleave(T, dim=0)
+        pooled, _ = self.attention_layer_vision(flat_query, flat_frames)
+        emb_frames = self.fc2(pooled).reshape(B, T, c.demb)
+        emb_dirs = self.direction_embedding(directions)
+
+        # ---- positional encoding + trunk input ----
+        lang_pe, emb_frames, emb_dirs = add_haa_pos_encoding(
+            lang, emb_frames, emb_dirs, self.pe)
+        seq = torch.cat([lang_pe, emb_frames, emb_dirs], dim=1)
+        seq = self.encoder_vl.enc_layernorm(seq)
+
+        # ---- masks: the reference never masks language padding in the
+        # trunk (src/models/enc_vl.py:49-55 masks only frames/directions) ----
+        attn_mask = haa_attention_mask(L, T, device=seq.device)
+        step_pad = torch.arange(T, device=seq.device)[None, :] >= lengths[:, None]
+        lang_pad = torch.zeros((B, L), dtype=torch.bool, device=seq.device)
+        key_pad = torch.cat([lang_pad, step_pad, step_pad], dim=1)
+        for layer in self.encoder_vl.enc_transformer.layers:
+            seq = layer(seq, attn_mask, key_pad)
+
+        # ---- readout at the batch-max valid step (ET_haa.py:157-158) ----
+        max_len = lengths.max()
+        vis_tok = seq.index_select(1, (L + max_len - 1).reshape(1))[:, 0]
+        dir_tok = seq.index_select(1, (L + T + max_len - 1).reshape(1))[:, 0]
+
+        action = self.decoder_2_action_full(dir_tok)
+        sal = self.fc(vis_tok)
+        saliency = saliency_upsample(sal.reshape(B, 8, 8), c.saliency_hw)
+        return action, saliency

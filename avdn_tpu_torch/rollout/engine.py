@@ -1,0 +1,283 @@
+"""The episode engine — render → encode → act → step (torch counterpart of
+``avdn_tpu/rollout/engine.py``).
+
+The JAX package runs the whole episode under one ``lax.scan``; here the
+scan is a Python loop over all T steps whose state stays on the device: the
+map bank, the renderer, dynamics and oracle (``avdn_tpu_torch.sim``) and the
+model with fixed-shape padded history. Nothing in the loop reads a value
+back to the host.
+
+Semantics preserved from the reference (each deliberate):
+* losses accumulate over ALL batch items every step, ended or not
+  (agent.py:663-669 has no ended guard);
+* movement is gated on the CURRENT stop decision only — previously-ended
+  items still zoom/move invisibly (agent.py:733-757); their trajectory is
+  simply no longer logged;
+* the stop threshold is 0.5 (ET, teacher-forced and student;
+  ``STOP_THRESHOLD``);
+* a step where every item is already ended contributes no loss (the
+  reference breaks out of the loop, agent.py:771).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from avdn_tpu_torch.ops.losses import step_losses
+from avdn_tpu_torch.ops.saliency import saliency_reductions
+from avdn_tpu_torch.sim.dynamics import move_view_corners_batch
+from avdn_tpu_torch.sim.oracle import teacher_action_batch
+from avdn_tpu_torch.sim.render import render_batch
+
+_PI_REF = 3.14159
+
+#: the stop decision's progress threshold, teacher-forced and student (ET)
+STOP_THRESHOLD = 0.5
+
+#: RGB normalisation stats (the reference's xView constants,
+#: src/xview_et/agent.py:115-116, applied after the BGR→RGB flip — the map
+#: bank is RGB from the start so they apply directly).
+RGB_MEAN = (60.134, 49.697, 40.746)
+RGB_STD = (29.99, 24.498, 22.046)
+
+
+@dataclasses.dataclass
+class EpisodeBatch:
+    """Device-resident episode batch. All coordinates are GPS *offsets* from
+    each map's bottom-left corner (float32-safe, see sim.dynamics)."""
+
+    map_idx: torch.Tensor        # (B,) int — index into the map bank
+    start_corners: torch.Tensor  # (B, 4, 2)
+    start_dir: torch.Tensor      # (B,) degrees
+    extent: torch.Tensor         # (B, 2) map extent in degrees
+    lat_ratio: torch.Tensor      # (B,) degrees per pixel
+    gt_corners: torch.Tensor     # (B, Tg, 4, 2) padded GT path
+    gt_len: torch.Tensor         # (B,)
+    circles: torch.Tensor        # (B, C, 3) attention circles in img coords
+    n_circles: torch.Tensor      # (B,)
+    lang_feat: torch.Tensor      # (B, L, D) BERT token features (pass 1)
+    lang_cls: torch.Tensor       # (B, 49) BERT head output (pass 2)
+    lang_mask: torch.Tensor      # (B, L) bool — valid language tokens
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutConfig:
+    """The eval rollout's settings (the JAX config's render-mode, remat and
+    train fields belong to paths this port has not reached; eval rollouts
+    carry no NSS loss term, ``nss_w`` = 0 in JAX)."""
+
+    max_action_len: int = 10
+    teacher_forcing: bool = True       # feedback mode
+    compute_losses: bool = True        # False for serving / test_unseen
+    nss_r: int = 0
+    language_only: bool = False        # zero out visual features (ablation)
+    no_direction: bool = False         # zero out heading features (ablation)
+    collect_ha_metrics: bool = False   # per-step HA precision/recall + NSS
+    fused_input_norm: bool = False     # (x−mean)/std folded into conv 1
+
+
+@dataclasses.dataclass
+class RolloutOutputs:
+    """Per-step (leading axis T) trajectory records for host-side metrics."""
+
+    alive_pre: torch.Tensor      # (T, B) item alive at model-call time
+    alive_post: torch.Tensor     # (T, B) alive after the stop update
+    actions_wp: torch.Tensor     # (T, B, 2) normalised predicted waypoint
+    actions_alt: torch.Tensor    # (T, B) clipped predicted altitude
+    pred_progress: torch.Tensor  # (T, B) raw predicted progress
+    gt_wp: torch.Tensor          # (T, B, 2)
+    gt_alt: torch.Tensor         # (T, B)
+    gt_progress: torch.Tensor    # (T, B)
+    corners: torch.Tensor        # (T, B, 4, 2) post-step corners
+    directions: torch.Tensor     # (T, B)
+    ha_precision: torch.Tensor   # (T, B)
+    ha_recall: torch.Tensor      # (T, B)
+    ha_nss: torch.Tensor         # (T, B)
+    ha_valid: torch.Tensor       # (T, B)
+    loss: torch.Tensor           # () summed ml loss (pre ml_weight scaling)
+
+    def cpu(self) -> "RolloutOutputs":
+        return RolloutOutputs(**{f.name: getattr(self, f.name).cpu()
+                                 for f in dataclasses.fields(self)})
+
+
+def _corners_to_img(corners, extent, lat_ratio):
+    """GPS offsets (lat, lng) → map image (x, y) (src/env.py:189-196)."""
+    x = corners[..., 1] / lat_ratio[:, None]
+    y = (extent[:, 0:1] - corners[..., 0]) / lat_ratio[:, None]
+    return torch.stack([x, y], dim=-1)
+
+
+def render_views(map_bank, batch: EpisodeBatch, corners):
+    """Render the batch's current views + GT saliency (exact mode; the
+    other modes are rejected when the rollout is built, train/step.py)."""
+    quad_img = _corners_to_img(corners, batch.extent, batch.lat_ratio)
+    return render_batch(map_bank, batch.map_idx, quad_img, batch.circles,
+                        batch.n_circles)
+
+
+def decode_action(action):
+    """Raw model action (B, 4) → (wp_norm, alt_clip, prog_clip) exactly as
+    the reference decodes (agent.py:640-653): ∞-ball clamp + [0,1] clips."""
+    action = action.float()
+    pred_wp = action[:, 0:2]
+    denom = torch.clamp(pred_wp.abs().max(dim=-1, keepdim=True).values, min=1.0)
+    return pred_wp / denom, action[:, 2].clamp(0.0, 1.0), action[:, 3].clamp(0.0, 1.0)
+
+
+def dynamics_update(corners, directions, act_wp, act_alt, prog_stop, thresh,
+                    t, T, extent):
+    """One simulator transition (agent.py:733-757): the stop decision gates
+    the move; items that stop keep their corners.
+    Returns (stop_now, new_corners, new_dirs)."""
+    stop_now = (prog_stop > thresh) | (t == T - 1)
+    a_dir = torch.remainder(
+        (torch.atan2(act_wp[:, 0], act_wp[:, 1]) / _PI_REF + 2.0) / 2.0, 1.0)
+    half_edge = torch.linalg.vector_norm(corners[:, 0] - corners[:, 1], dim=-1) / 2.0
+    a_dist = torch.linalg.vector_norm(act_wp, dim=-1) * half_edge
+    a_alt_m = torch.round(act_alt * 360.0) + 40.0
+    moved, moved_dir = move_view_corners_batch(
+        corners, torch.round(a_dir * 360.0), a_dist, a_alt_m, extent, directions)
+    do_move = ~stop_now
+    new_corners = torch.where(do_move[:, None, None], moved, corners)
+    new_dirs = torch.where(do_move, moved_dir, directions)
+    return stop_now, new_corners, new_dirs
+
+
+def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
+            model_step: Callable, init_model_state: Any,
+            generator: torch.Generator):
+    """Run one full episode batch: T steps, all on the batch's device.
+
+    ``model_step(model_state, images, dir_feat, step_index, ended)`` →
+    ``(new_model_state, action (B, 4), saliency (B, H, W))``; ``images`` are
+    the normalised (B, 224, 224, 3) views. ``generator`` draws the
+    reference's heading jitter of the loss (on the batch's device).
+    Returns ``(RolloutOutputs, final model_state)``.
+    """
+    B = batch.start_corners.shape[0]
+    T = cfg.max_action_len
+    dev = batch.start_corners.device
+    mean = torch.tensor(RGB_MEAN, dtype=torch.float32, device=dev)
+    std = torch.tensor(RGB_STD, dtype=torch.float32, device=dev)
+    zeros = torch.zeros((B,), dtype=torch.float32, device=dev)
+
+    corners = batch.start_corners.float()
+    directions = batch.start_dir.float()
+    ended = torch.zeros((B,), dtype=torch.bool, device=dev)
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    model_state = init_model_state
+    ys = []
+    for t in range(T):
+        any_alive = ~ended.all()
+
+        # ---- render current views on device ----
+        views, gt_sal = render_views(map_bank, batch, corners)
+        # input normalisation — the /std is folded into the first conv when
+        # the eval tower is BN-folded (fold_darknet_params); the mean
+        # subtraction stays here (the conv zero-pads the NORMALISED tensor)
+        x = views - mean if cfg.fused_input_norm else (views - mean) / std
+
+        rad = directions / 180.0 * _PI_REF
+        dir_feat = torch.stack([torch.sin(rad), torch.cos(rad)], dim=-1)
+        if cfg.no_direction:
+            dir_feat = torch.zeros_like(dir_feat)
+
+        # ---- model ----
+        model_state, action, pred_sal = model_step(model_state, x, dir_feat, t, ended)
+        action = action.float()
+        pred_sal = pred_sal.float()
+        # losses see the RAW head outputs (agent.py:663-669); the decode
+        # only feeds the trajectory records and student feedback
+        pred_wp, pred_alt, pred_prog = action[:, 0:2], action[:, 2], action[:, 3]
+        wp_norm, alt_clip, prog_clip = decode_action(action)
+
+        # ---- saliency statistics (the CUDA kernel on the card) ----
+        if cfg.compute_losses or cfg.collect_ha_metrics:
+            neg_nss, nss_valid, ha_prec, ha_rec = saliency_reductions(
+                pred_sal, gt_sal, nss_r=cfg.nss_r)
+        else:
+            neg_nss, ha_prec, ha_rec = zeros, zeros, zeros
+            nss_valid = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+        # ---- oracle + losses ----
+        if cfg.compute_losses:
+            oracle = teacher_action_batch(corners, ended, batch.gt_corners,
+                                          batch.gt_len, cfg.teacher_forcing)
+            gt_wp = oracle["waypoint_ratio"]
+            gt_alt = oracle["altitude"]
+            gt_prog = oracle["progress"]
+            heading_eps = 1e-5 * torch.rand((B,), generator=generator, device=dev)
+            ml = step_losses(pred_wp, pred_alt, pred_prog, gt_wp, gt_alt,
+                             gt_prog, heading_eps)
+            loss = loss + torch.where(any_alive, ml, 0.0)
+        else:
+            gt_wp = torch.zeros((B, 2), dtype=torch.float32, device=dev)
+            gt_alt, gt_prog = zeros, zeros
+
+        # ---- feedback + stop decision ----
+        if cfg.teacher_forcing:
+            act_wp, act_alt, prog_stop = gt_wp, gt_alt, gt_prog
+        else:
+            act_wp, act_alt, prog_stop = wp_norm, alt_clip, prog_clip
+        stop_now, new_corners, new_dirs = dynamics_update(
+            corners, directions, act_wp, act_alt, prog_stop, STOP_THRESHOLD, t, T,
+            batch.extent)
+        ended_next = ended | stop_now
+
+        y = dict(
+            alive_pre=~ended,
+            alive_post=~ended_next,
+            actions_wp=wp_norm,
+            actions_alt=alt_clip,
+            pred_progress=pred_prog,
+            gt_wp=gt_wp,
+            gt_alt=gt_alt,
+            gt_progress=gt_prog,
+            corners=new_corners,
+            directions=new_dirs,
+            ha_precision=ha_prec,
+            ha_recall=ha_rec,
+            ha_nss=neg_nss,
+            # the reference records HA metrics for every item while the
+            # episode loop is still running, ended or not (agent.py:673-691)
+            ha_valid=nss_valid & any_alive & cfg.collect_ha_metrics,
+        )
+        ys.append(y)
+        corners, directions, ended = new_corners, new_dirs, ended_next
+
+    stacked = {k: torch.stack([y[k] for y in ys]) for k in ys[0]}
+    return RolloutOutputs(loss=loss, **stacked), model_state
+
+
+def make_et_step(darknet_model, et_model, batch: EpisodeBatch, cfg: RolloutConfig):
+    """ET closure: pads history to T and re-encodes the full episode each
+    step (the reference's O(T²) semantics, agent.py:605-630, kept for model
+    parity — the transformer *is* history-conditioned). The history buffers
+    are updated in place."""
+    B = batch.lang_feat.shape[0]
+    T = cfg.max_action_len
+    dev = batch.lang_feat.device
+
+    def init_state(feat_channels: int, spatial: int):
+        return {
+            "frames": torch.zeros((B, T, feat_channels, spatial), device=dev),
+            "dirs": torch.zeros((B, T, 2), device=dev),
+            "lengths": torch.zeros((B,), dtype=torch.long, device=dev),
+        }
+
+    def step(state, x, dir_feat, t, ended):
+        feats = darknet_model(x)
+        if cfg.language_only:
+            feats = torch.zeros_like(feats)
+        state["frames"][:, t] = feats
+        state["dirs"][:, t] = dir_feat
+        state["lengths"] = state["lengths"] + (~ended).long()
+        action, sal = et_model(batch.lang_feat, batch.lang_cls, state["frames"],
+                               state["dirs"], state["lengths"])
+        return state, action, sal
+
+    return step, init_state
