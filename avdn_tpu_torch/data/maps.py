@@ -2,8 +2,9 @@
 (torch counterpart of ``avdn_tpu/data/maps.py``).
 
 Maps are preprocessed ONCE on host (area-resample to square lat-ratio
-pixels, BGR→RGB), padded to a fixed slot shape, and uploaded into a uint8
-tensor on the device that the renderer gathers from directly. Attention
+pixels with the port's copy of the native INTER_AREA resampler, BGR→RGB),
+padded to a fixed slot shape, and uploaded into a uint8 tensor on the
+device that the renderer gathers from directly. Attention
 circles are kept as (cx, cy, r) lists (img coords) instead of rasterised
 maps — the renderer tests them analytically (see sim.render).
 
@@ -22,6 +23,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from avdn_tpu_torch.data.resample import area_resize
 from avdn_tpu_torch.device import resolve_device
 from avdn_tpu_torch.geometry.transforms import gps_to_img_coords_np
 
@@ -29,14 +31,16 @@ from avdn_tpu_torch.geometry.transforms import gps_to_img_coords_np
 def load_map_image(path: str, lng_ratio: float, lat_ratio: float) -> np.ndarray:
     """Read a GeoTIFF tile and resample its width by lng_ratio/lat_ratio so
     pixels are square in latitude units (src/env.py:217-221). Returns RGB
-    uint8 (the reference keeps BGR and flips at model input; we flip once)."""
+    uint8 (the reference keeps BGR and flips at model input; we flip once).
+    OpenCV decodes; the resampling is :func:`resample.area_resize`, bit-equal
+    to the JAX package's native resampler."""
     import cv2
 
     im = cv2.imread(path, 1)
     if im is None:
         raise FileNotFoundError(path)
     new_w = int(im.shape[1] * lng_ratio / lat_ratio)
-    im = cv2.resize(im, (new_w, im.shape[0]), interpolation=cv2.INTER_AREA)
+    im = area_resize(im, im.shape[0], new_w)
     return np.ascontiguousarray(im[:, :, ::-1])
 
 

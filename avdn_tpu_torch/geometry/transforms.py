@@ -11,6 +11,15 @@ from __future__ import annotations
 
 import torch
 
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA's contracted multiply-add
+    rounds it: the float64 product of two float32 values is exact, so only
+    the sum rounds (to float64, then to float32 — the same result as a
+    hardware FMA except on exact ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 #: GPS degrees → meters scale used throughout the reference (src/env.py:339).
 DEG_TO_M = 11.13e4
 

@@ -20,23 +20,18 @@ Rounding: the JAX package runs this arithmetic through XLA, which contracts
 ``i * (1/223)``. The source coordinates are what the bilinear gather
 amplifies (one float32 ulp of a coordinate moves a view pixel by up to
 255·ulp), so they are evaluated here in the same order with the same
-roundings (:func:`_fma`, exact through float64): the coordinates of both
-packages agree bit for bit and the views to within float32 rounding of the
-blend.
+roundings (``geometry.transforms.fma``, exact through float64): the
+coordinates of both packages agree bit for bit and the views to within
+float32 rounding of the blend.
 """
 
 from __future__ import annotations
 
 import torch
 
+from avdn_tpu_torch.geometry.transforms import fma
+
 VIEW_HW = 224
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once: the float64 product of two
-    float32 values is exact, so only the sum rounds (to float64, then to
-    float32 — the same result as a hardware FMA except on exact ties)."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 def square_to_quad_homography(quad: torch.Tensor) -> torch.Tensor:
@@ -58,8 +53,8 @@ def square_to_quad_homography(quad: torch.Tensor) -> torch.Tensor:
     denom = torch.where(denom.abs() > 1e-20, denom, 1e-20)
     g = cross(s, d2) / denom
     h = cross(d1, s) / denom
-    a_vec = _fma(g[:, None], p1, p1 - p0)
-    b_vec = _fma(h[:, None], p3, p3 - p0)
+    a_vec = fma(g[:, None], p1, p1 - p0)
+    b_vec = fma(h[:, None], p3, p3 - p0)
     one = torch.ones_like(g)
     return torch.stack(
         [
@@ -86,7 +81,7 @@ def view_to_map_coords(src_quads: torch.Tensor, out_hw: int = VIEW_HW) -> torch.
     ys = ys[None, :, :, None]
     Hb = H[:, None, None, :, :]  # (B, 1, 1, 3, 3): row k maps to output k
     # pts @ H.T with pts = (x, y, 1), accumulated term by term
-    mapped = _fma(ys, Hb[..., 1], xs * Hb[..., 0]) + Hb[..., 2]
+    mapped = fma(ys, Hb[..., 1], xs * Hb[..., 0]) + Hb[..., 2]
     denom = mapped[..., 2:3]
     return mapped[..., :2] / torch.where(denom.abs() > 1e-12, denom, 1.0)
 

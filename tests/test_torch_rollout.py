@@ -6,7 +6,9 @@ Both sides get the same weights (the JAX ``init_state`` carried across by
 the BN fold is exercised) and batches built by each side's
 ``make_train_batch`` from the same demo-dataset items, in three modes:
 student with losses (the nav eval), student without losses (serving) and the
-teacher-forced HA eval with ``fused_teacher=False``.
+teacher-forced HA eval with ``fused_teacher=False``. Each package decodes
+the maps by its own default path (the JAX package's native resampler, the
+port's copy of it), and the two banks must be byte-equal.
 
 Tolerances: stop flags identical; actions, progress and corners within 1e-4
 relative; HA precision, recall and NSS within 1e-4; the summed loss within
@@ -14,7 +16,6 @@ relative; HA precision, recall and NSS within 1e-4; the summed loss within
 different generators).
 """
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -80,16 +81,6 @@ def port_models(pargs, weights):
     return models
 
 
-@contextlib.contextmanager
-def cv2_maps():
-    """The JAX package decodes maps with OpenCV's INTER_AREA resize, as the
-    port does, instead of its native resampler (±1 intensity from OpenCV,
-    tests/test_native.py; the port of the native library is still queued)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr("avdn_tpu.data.native.available", lambda: False)
-        yield
-
-
 def both_batches(args, pargs, items):
     """The same items through each package's bank + batcher."""
     from avdn_tpu.data.batcher import make_train_batch as jax_batch
@@ -130,8 +121,7 @@ def setup(tmp_path_factory):
     raw = json.load(open(os.path.join(root, "AVDN", "annotations",
                                       "val_seen_data.json")))
     items = [JaxNavigator._normalize_item(it) for it in raw[:N_ITEMS]]
-    with cv2_maps():
-        jside, pside = both_batches(args, pargs, items)
+    jside, pside = both_batches(args, pargs, items)
     return dict(args=args, pargs=pargs, cfg=cfg, models=models, state=state,
                 pmodels=pmodels, jside=jside, pside=pside)
 

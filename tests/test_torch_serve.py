@@ -18,7 +18,7 @@ import pytest
 
 from fixtures import write_fixture_dataset
 from test_e2e_loop import TINY_DARKNET_CFG, make_args
-from test_torch_rollout import cv2_maps, jax_models, port_args
+from test_torch_rollout import jax_models, port_args
 
 N_ITEMS = 7
 
@@ -51,7 +51,7 @@ def preds(tmp_path_factory):
     items = json.load(open(os.path.join(root, "AVDN", "annotations",
                                         "val_seen_data.json")))[:N_ITEMS]
     init = jax_loop.init_state
-    with cv2_maps(), pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp:
         # the eager JAX init compiles op by op; its weights are replaced by
         # the checkpoint anyway
         mp.setattr(jax_loop, "init_state", lambda *a: jax.jit(
