@@ -169,16 +169,23 @@ def et_state_dict(et_vars: Dict[str, Any],
 
 # --------------------------------------------------------------- agent ----
 
+#: Buffers a released checkpoint may carry that hold no weight: HF's BERT
+#: saves ``position_ids`` (an arange), which the JAX importer ignores too.
+#: Every other key is loaded strictly.
+IGNORED_BUFFERS = {"lang_model": ("bert.embeddings.position_ids",)}
+
 
 def load_reference_agent(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
     """Read an ET agent checkpoint ``.pt`` → ``{"lang_model", "vision_model",
-    "vln_model"}`` state dicts (CPU tensors)."""
+    "vln_model"}`` state dicts (CPU tensors), without the
+    :data:`IGNORED_BUFFERS`."""
     blob = torch.load(path, map_location="cpu", weights_only=False)
     missing = {"lang_model", "vision_model", "vln_model"} - set(blob)
     if missing:
         raise KeyError(f"{path}: not an ET agent checkpoint (missing "
                        f"{sorted(missing)})")
-    return {k: dict(blob[k]["state_dict"])
+    return {k: {name: v for name, v in blob[k]["state_dict"].items()
+                if name not in IGNORED_BUFFERS.get(k, ())}
             for k in ("lang_model", "vision_model", "vln_model")}
 
 

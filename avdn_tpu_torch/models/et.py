@@ -70,7 +70,7 @@ class HAATransformer(nn.Module):
         self.register_buffer(
             "pe", sinusoidal_pos_encoding(c.pos_max_len, c.demb), persistent=False)
 
-    def forward(
+    def encode(
         self,
         lang,          # (B, L, demb) BERT token features
         lang_cls,      # (B, 49) BERT 49-d head (spatial attention query)
@@ -78,6 +78,9 @@ class HAATransformer(nn.Module):
         directions,    # (B, T, 2) (sin, cos) headings
         lengths,       # (B,) valid history length per item (>= 1)
     ):
+        """The trunk: embeddings, positional encoding and the encoder layers
+        over the ``[lang | frames | directions]`` sequence. Returns the last
+        layer's tokens, (B, L + 2T, demb)."""
         c = self.cfg
         B, T = frames.shape[0], frames.shape[1]
         L = lang.shape[1]
@@ -103,13 +106,22 @@ class HAATransformer(nn.Module):
         key_pad = torch.cat([lang_pad, step_pad, step_pad], dim=1)
         for layer in self.encoder_vl.enc_transformer.layers:
             seq = layer(seq, attn_mask, key_pad)
+        return seq
 
-        # ---- readout at the batch-max valid step (ET_haa.py:157-158) ----
+    def readout(self, vis_tok, dir_tok):
+        """Visual token → saliency (N, 224, 224); direction token → action
+        (N, 4)."""
+        action = self.decoder_2_action_full(dir_tok)
+        sal = self.fc(vis_tok)
+        saliency = saliency_upsample(sal.reshape(-1, 8, 8), self.cfg.saliency_hw)
+        return action, saliency
+
+    def forward(self, lang, lang_cls, frames, directions, lengths):
+        """One step's outputs: the trunk over the padded history, read out at
+        the batch-max valid step (ET_haa.py:157-158)."""
+        L, T = lang.shape[1], frames.shape[1]
+        seq = self.encode(lang, lang_cls, frames, directions, lengths)
         max_len = lengths.max()
         vis_tok = seq.index_select(1, (L + max_len - 1).reshape(1))[:, 0]
         dir_tok = seq.index_select(1, (L + T + max_len - 1).reshape(1))[:, 0]
-
-        action = self.decoder_2_action_full(dir_tok)
-        sal = self.fc(vis_tok)
-        saliency = saliency_upsample(sal.reshape(B, 8, 8), c.saliency_hw)
-        return action, saliency
+        return self.readout(vis_tok, dir_tok)

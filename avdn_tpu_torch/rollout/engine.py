@@ -22,7 +22,7 @@ Semantics preserved from the reference (each deliberate):
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -76,7 +76,14 @@ class RolloutConfig:
     language_only: bool = False        # zero out visual features (ablation)
     no_direction: bool = False         # zero out heading features (ablation)
     collect_ha_metrics: bool = False   # per-step HA precision/recall + NSS
+    collect_views: bool = False        # debug: return rendered views
+    collect_saliency: bool = False     # debug: return pred/GT saliency maps
     fused_input_norm: bool = False     # (x−mean)/std folded into conv 1
+    fused_teacher: bool = True         # teacher forcing: time-fused rollout
+    # (rollout/fused.py) — the trajectory is model-independent, so render
+    # and towers run once over all T·B views; student mode always steps
+    fast_eval_trunk: bool = True       # fused teacher eval: ONE trunk pass
+    # (models/et_fast.py) instead of T step-masked re-encodes
 
 
 @dataclasses.dataclass
@@ -98,10 +105,14 @@ class RolloutOutputs:
     ha_nss: torch.Tensor         # (T, B)
     ha_valid: torch.Tensor       # (T, B)
     loss: torch.Tensor           # () summed ml loss (pre ml_weight scaling)
+    views: Optional[torch.Tensor] = None     # (T, B, 224, 224, 3) debug dumps
+    pred_sal: Optional[torch.Tensor] = None  # (T, B, 224, 224)
+    gt_sal: Optional[torch.Tensor] = None    # (T, B, 224, 224)
 
     def cpu(self) -> "RolloutOutputs":
-        return RolloutOutputs(**{f.name: getattr(self, f.name).cpu()
-                                 for f in dataclasses.fields(self)})
+        return RolloutOutputs(**{
+            f.name: None if getattr(self, f.name) is None else getattr(self, f.name).cpu()
+            for f in dataclasses.fields(self)})
 
 
 def _corners_to_img(corners, extent, lat_ratio):
@@ -246,6 +257,12 @@ def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
             # episode loop is still running, ended or not (agent.py:673-691)
             ha_valid=nss_valid & any_alive & cfg.collect_ha_metrics,
         )
+        if cfg.collect_views:
+            y["views"] = views
+        if cfg.collect_saliency:
+            # per-step attention debug dumps (agent.py:694-706)
+            y["pred_sal"] = pred_sal
+            y["gt_sal"] = gt_sal
         ys.append(y)
         corners, directions, ended = new_corners, new_dirs, ended_next
 

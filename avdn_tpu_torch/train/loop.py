@@ -1,6 +1,11 @@
-"""Model building and eval configuration helpers (torch counterpart of the
-helpers in ``avdn_tpu/train/loop.py``; the train and validation drivers are
-not ported yet, ROADMAP.md queue 1 items 8 and 10).
+"""The validation driver and its helpers (torch counterpart of
+``avdn_tpu/train/loop.py``; the train driver is ROADMAP.md queue 1 item 10).
+
+``valid`` → ``run_validation`` → ``_eval_env`` mirror the reference's
+inference flow (src/xview_et/main.py:188-288): the student-forced nav eval
+and the teacher-forced human-attention eval over the val splits, the metric
+record (``valid.txt``, ``metrics.jsonl``), the debug images, and with
+``--submit`` the Eval.ai ``output_test_result.npy``.
 
 Numerics of this slice: the exact render in fp32. An unset ``--bf16`` or
 ``--render_twopass`` means bf16 towers and the two-pass render for
@@ -10,18 +15,32 @@ them instead of quietly running another mode.
 
 from __future__ import annotations
 
+import contextlib
+import json
 import math
 import os
+import time
 
+import numpy as np
 import torch
 from torch import nn
 
+from avdn_tpu_torch.compat.from_jax import load_agent_weights, load_reference_agent
 from avdn_tpu_torch.config import Args
-from avdn_tpu_torch.data.batcher import BatcherConfig
+from avdn_tpu_torch.data.annotations import ANDHDataset
+from avdn_tpu_torch.data.batcher import BatcherConfig, make_train_batch
+from avdn_tpu_torch.data.maps import DeviceMapBank, load_map_image
+from avdn_tpu_torch.data.prefetch import Prefetcher
+from avdn_tpu_torch.data.tokenizer import WordPieceTokenizer
+from avdn_tpu_torch.device import resolve_device, use_fp32_numerics
+from avdn_tpu_torch.metrics.nav import assemble_trajectories, eval_metrics
 from avdn_tpu_torch.models.bert import BertConfig, BertLanguageEncoder
 from avdn_tpu_torch.models.darknet import Darknet, DarknetConfig
 from avdn_tpu_torch.models.et import ETConfig, HAATransformer
-from avdn_tpu_torch.train.step import TrainConfig
+from avdn_tpu_torch.train.step import TrainConfig, make_eval_rollout
+from avdn_tpu_torch.utils.logging import MetricWriter, PhaseTimer
+from avdn_tpu_torch.utils.seed import set_random_seed
+from avdn_tpu_torch.viz import save_debug_overlays, save_saliency_heatmaps
 
 
 def eval_bf16(args: Args, device: torch.device) -> bool:
@@ -43,7 +62,7 @@ def check_supported(args: Args, device: torch.device) -> None:
     """Raise ``NotImplementedError`` for every flag this slice cannot run,
     naming the ROADMAP.md item that brings it."""
     eval_bf16(args, device)
-    if args.world_size > 1:
+    if args.world_size > 1 or int(os.environ.get("AVDN_NUM_PROCESSES", "0") or 0) > 1:
         raise NotImplementedError(
             "multi-process and data-parallel runs are ROADMAP.md queue 1 item 14")
     if args.family != "et":
@@ -114,6 +133,7 @@ def eval_config_from_args(args: Args) -> TrainConfig:
         render_twopass=args.render_twopass is not False,
         fold_bn_eval=args.fold_bn_eval,
         fused_teacher=args.fused_teacher,
+        fast_eval_trunk=args.fast_eval_trunk,
         et_decode_trunk=args.et_decode_trunk,
         quant=args.quant,
     )
@@ -129,3 +149,247 @@ def batcher_config(args: Args) -> BatcherConfig:
         vision_only=args.vision_only,
         single_bert_pass=args.train_val_on_full,
     )
+
+
+# ------------------------------------------------------ validation driver --
+
+
+def build_dataset(args: Args):
+    """The validation envs, ``{name: ANDHDataset}`` (val_seen, val_unseen,
+    and test_unseen under ``--submit``), each with the seeded shuffle of
+    ``--seed``. The train env comes with training (ROADMAP.md queue 1
+    item 10)."""
+    names = ["val_seen", "val_unseen"] + (["test_unseen"] if args.submit else [])
+    return {name: ANDHDataset(args.val_anno_dir, [name], args.batch_size,
+                              seed=args.seed, full_traj=args.train_val_on_full)
+            for name in names}
+
+
+def _check_dataset(args: Args, splits):
+    """Fail fast (before the expensive model init) when the dataset is
+    missing, with a message that names the flag to fix."""
+    missing = [
+        s for s in splits
+        if not os.path.exists(os.path.join(args.train_anno_dir, f"{s}_data.json"))
+    ]
+    if missing:
+        raise FileNotFoundError(
+            f"annotation files for splits {missing} not found under "
+            f"{args.train_anno_dir} — point --root_dir at a dataset root "
+            "containing AVDN/{annotations,train_images}"
+        )
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Trace the enclosed block with ``torch.profiler`` (host ops, and the
+    card's kernels where there is one) into ``<log_dir>/trace.json``, a
+    Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _eval_env(args, env, eval_fn, tokenizer, bank, bcfg, device,
+              on_batch=None, profile_dir=None):
+    """One full pass over a val env; returns preds keyed by instr_id.
+    Wrap-around duplicate items overwrite by key (reference agent.test,
+    agent.py:204-206). ``on_batch(out, meta)`` observes each batch's rollout
+    outputs on the host (debug-image dumps). Every batch gets a fresh
+    generator seeded with ``--seed`` (the JAX package's one fixed key): the
+    only random draw left in eval is the unused loss's heading jitter.
+    ``profile_dir`` traces the FIRST batch only."""
+    preds = {}
+
+    def _prepare(items):
+        """Host batch assembly — prefetched under ``--prefetch`` so map
+        decode and tokenisation overlap the rollouts on the card."""
+        bank_arr, slot_of = bank.prepare(items)
+        batch, meta = make_train_batch(items, tokenizer, slot_of, bcfg, device=device)
+        return bank_arr, batch, meta
+
+    if args.prefetch:
+        batches = Prefetcher(env, _prepare, depth=2)
+    else:
+        batches = (_prepare(items) for items in env)
+    for bi, (bank_arr, batch, meta) in enumerate(batches):
+        gen = torch.Generator(device).manual_seed(args.seed)
+        trace = (profile_trace(profile_dir) if profile_dir and bi == 0
+                 else contextlib.nullcontext())
+        with trace:
+            out = eval_fn(bank_arr, batch, gen).cpu()
+        preds.update(assemble_trajectories(out, meta))
+        if on_batch is not None:
+            on_batch(out, meta)
+    return preds
+
+
+def _write_debug_images(args, env, preds, env_name):
+    """Inference-mode trajectory overlays (agent.py:776-879 flow)."""
+    items_by_id = {it["map_name"] + "__" + it["route_index"]: it for it in env.data}
+    host_maps = {}
+    for it in items_by_id.values():
+        nm = it["map_name"]
+        if nm not in host_maps:
+            try:
+                host_maps[nm] = load_map_image(
+                    os.path.join(args.val_dataset_dir, nm + ".tif"),
+                    it["lng_ratio"], it["lat_ratio"])
+            except FileNotFoundError:
+                pass
+    save_debug_overlays(args.pred_dir, env_name, preds, host_maps, items_by_id)
+
+
+def _write_saliency_debug(args, env_name, out, meta):
+    """Per-step pred/GT attention heatmaps + input views during the
+    teacher-forced HA eval in inference mode (agent.py:694-706): one jpg
+    triple per item per step while the episode loop is still running."""
+    out_dir = os.path.join(args.pred_dir, "debug_images")
+    alive_any = out.alive_pre.numpy().any(axis=1)  # (T,)
+    pred = out.pred_sal.numpy()
+    gt = out.gt_sal.numpy()
+    views = out.views.numpy() if out.views is not None else None
+    for t in range(pred.shape[0]):
+        if not alive_any[t]:
+            break
+        for i, m in enumerate(meta):
+            map_name, route = m["instr_id"].split("__", 1)
+            tag = f"{env_name}val{map_name}_{route}"
+            save_saliency_heatmaps(
+                out_dir, tag, pred[t, i], gt[t, i],
+                view=None if views is None else views[t, i], step=t)
+
+
+def run_validation(args, val_envs, eval_student, eval_teacher, tokenizer, bank,
+                   bcfg, writer, step: int, device, eval_student_test=None,
+                   eval_teacher_debug=None, profile_dir=None, timers=None):
+    """Student nav eval + teacher-forced HA eval over all val envs
+    (main.py:188-239). Returns {env_name: avg_metrics}.
+
+    With ``eval_teacher_debug`` (a ``collect_debug`` rollout) in inference
+    mode, per-step saliency heatmaps are written to preds/debug_images
+    (agent.py:694-706). ``timers`` (a ``PhaseTimer``) times the nav and HA
+    evals and the debug images (the heatmaps inside the HA eval's time)."""
+    timers = timers or PhaseTimer()
+    results = {}
+    loss_str = f"iter {step}"
+    for ei, (env_name, env) in enumerate(val_envs.items()):
+        fn = eval_student
+        if "test" in env_name and eval_student_test is not None:
+            fn = eval_student_test
+        with timers("nav_eval"):
+            preds = _eval_env(args, env, fn, tokenizer, bank, bcfg, device,
+                              profile_dir=profile_dir if ei == 0 else None)
+        if "test_unseen" in env_name:
+            np.save("./output_test_result.npy", preds, allow_pickle=True)
+            print("inference_result on test is generated.")
+            continue
+        if args.inference:
+            with timers("debug_images"):
+                _write_debug_images(args, env, preds, env_name)
+        avg, _ = eval_metrics(preds)
+        results[env_name] = avg
+        loss_str += f", {env_name} " + "".join(
+            f", {k}: {v:.2f}" for k, v in avg.items())
+        writer.scalars(step, {f"{k}/{env_name}": v for k, v in avg.items()})
+    for env_name, env in val_envs.items():
+        if "test_unseen" in env_name:
+            continue
+        teacher_fn, on_batch = eval_teacher, None
+        if args.inference and eval_teacher_debug is not None:
+            teacher_fn = eval_teacher_debug
+
+            def on_batch(out, meta, _env=env_name):
+                with timers("debug_images"):  # inside the HA eval's wall
+                    _write_saliency_debug(args, _env, out, meta)
+
+        with timers("ha_eval"):
+            preds = _eval_env(args, env, teacher_fn, tokenizer, bank, bcfg,
+                              device, on_batch=on_batch)
+        ha_avg, _ = eval_metrics(preds, human_att_eval=True)
+        results[env_name + "_human_att"] = ha_avg
+        loss_str += f", {env_name}_human_att " + "".join(
+            f", {k}: {v:.2f}" for k, v in ha_avg.items())
+        writer.scalars(step, {f"{k}/{env_name}_ha": v for k, v in ha_avg.items()})
+    writer.text(loss_str)
+    return results
+
+
+def _timed_loader(loader, timers):
+    """``loader`` with each call timed under the "map_load" phase (summed
+    over the decode threads)."""
+    def load(item):
+        with timers("map_load"):
+            return loader(item)
+    return load
+
+
+def valid(args: Args, device=None):
+    """Inference mode (main.py:253-288) on the card, or on ``device``.
+
+    ``--resume_file`` is a reference-format ``.pt`` agent checkpoint
+    (``tools/export_torch_ckpt.py`` writes one from a JAX checkpoint);
+    without it the weights are random from ``--seed``. Writes
+    ``logs/valid.txt``, ``logs/metrics.jsonl`` and
+    ``logs/validation_args.json``, with ``--inference`` the debug images
+    under ``preds/debug_images``, and with ``--submit`` the Eval.ai
+    ``output_test_result.npy``. ``--profile_dir`` traces the first eval
+    batch. Returns ``({env_name: avg_metrics}, PhaseTimer)``; the timer
+    holds the map loading, nav-eval, HA-eval and debug-image walls."""
+    device = resolve_device(device)
+    check_supported(args, device)
+    if args.resume_file and (args.resume_file == "latest"
+                             or os.path.isdir(args.resume_file)):
+        raise NotImplementedError(
+            f"--resume_file {args.resume_file}: orbax checkpoints need the JAX "
+            "package; export them to a .pt with tools/export_torch_ckpt.py (the "
+            "port's own checkpoints come with training, ROADMAP.md queue 1 "
+            "item 10)")
+    set_random_seed(args.seed)
+    _check_dataset(args, ["val_seen", "val_unseen"])
+    use_fp32_numerics()
+    cfg = eval_config_from_args(args)
+    models = build_models(args, device)
+    init_state(models, torch.Generator().manual_seed(args.seed))
+    if args.resume_file:
+        load_agent_weights(models, load_reference_agent(args.resume_file))
+        print(f"Imported reference checkpoint {args.resume_file}")
+    tokenizer = WordPieceTokenizer.load(args.bert_vocab_file)
+    bcfg = batcher_config(args)
+    timers = PhaseTimer()
+    bank = DeviceMapBank(args.val_dataset_dir, (args.map_bank_px, args.map_bank_px),
+                         n_slots=args.map_bank_slots, device=device)
+    bank.loader = _timed_loader(bank.loader, timers)
+    writer = MetricWriter(args.log_dir, "valid.txt")
+    writer.text(f"device: {device}"
+                + (f" ({torch.cuda.get_device_name(device)})"
+                   if device.type == "cuda" else ""))
+    with open(os.path.join(args.log_dir, "validation_args.json"), "w") as f:
+        json.dump(vars(args), f, indent=4, default=str)
+    val_envs = build_dataset(args)
+    bert, darknet, vln = models
+    eval_student = make_eval_rollout(cfg, bert, darknet, vln, teacher=False)
+    eval_teacher = make_eval_rollout(cfg, bert, darknet, vln, teacher=True,
+                                     collect_ha=True)
+    eval_teacher_debug = (
+        make_eval_rollout(cfg, bert, darknet, vln, teacher=True, collect_ha=True,
+                          collect_debug=True)
+        if args.inference else None)
+    eval_student_test = (
+        make_eval_rollout(cfg, bert, darknet, vln, teacher=False,
+                          compute_losses=False)
+        if args.submit else None)
+    t0 = time.perf_counter()
+    results = run_validation(args, val_envs, eval_student, eval_teacher, tokenizer,
+                             bank, bcfg, writer, 0, device, eval_student_test,
+                             eval_teacher_debug=eval_teacher_debug,
+                             profile_dir=args.profile_dir or None, timers=timers)
+    writer.text(f"validation wall {time.perf_counter() - t0:.3f} s; phase timers: "
+                f"{timers.summary()}")
+    return results, timers

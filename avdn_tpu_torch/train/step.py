@@ -4,8 +4,9 @@ queue 1 item 10).
 
 Reference semantics (src/xview_et/agent.py:512-894): the two-pass BERT
 encode (token features from the instructions, the 49-d query from dialog +
-instructions), then a student-forced nav rollout or a teacher-forced
-human-attention rollout through ``rollout.engine``.
+instructions), then a student-forced nav rollout through ``rollout.engine``
+or a teacher-forced human-attention rollout, time-fused through
+``rollout.fused`` by default (``--fused_teacher``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from avdn_tpu_torch.rollout.engine import (
     make_et_step,
     rollout,
 )
+from avdn_tpu_torch.rollout.fused import rollout_teacher_fused
 
 
 @dataclasses.dataclass
@@ -50,6 +52,7 @@ class TrainConfig:
     render_twopass: bool = False
     fold_bn_eval: bool = True      # fold BN + input norm into eval conv weights
     fused_teacher: bool = True
+    fast_eval_trunk: bool = True
     et_decode_trunk: bool = False
     quant: str = "none"
 
@@ -60,6 +63,8 @@ class TrainConfig:
             nss_r=self.nss_r,
             language_only=self.language_only,
             no_direction=self.no_direction,
+            fused_teacher=self.fused_teacher,
+            fast_eval_trunk=self.fast_eval_trunk,
             **kw,
         )
 
@@ -76,12 +81,17 @@ def _encode_language(bert_model, batch: TrainBatch, cfg: TrainConfig):
 
 def _run_family_rollout(cfg: TrainConfig, roll_cfg: RolloutConfig, models,
                         bert_out, batch: TrainBatch, map_bank, generator):
-    """ET rollout through the engine's step loop (the non-fused branch of
+    """ET rollout: teacher forcing with ``fused_teacher`` takes the
+    time-fused path, everything else the engine's step loop (the branch of
     the JAX driver)."""
     darknet_model, vln_model = models
     lang_feat, lang_cls = bert_out
     ep = dataclasses.replace(batch.episode, lang_feat=lang_feat, lang_cls=lang_cls,
                              lang_mask=batch.mask_instr.bool())
+    if roll_cfg.teacher_forcing and roll_cfg.fused_teacher:
+        return rollout_teacher_fused(map_bank=map_bank, batch=ep, cfg=roll_cfg,
+                                     family=cfg.family, darknet_model=darknet_model,
+                                     vln_model=vln_model, generator=generator)
     step, init_state = make_et_step(darknet_model, vln_model, ep, roll_cfg)
     init = init_state(output_channels(darknet_model.cfg)[-1], 49)
     out, _ = rollout(map_bank=map_bank, batch=ep, cfg=roll_cfg, model_step=step,
@@ -89,7 +99,7 @@ def _run_family_rollout(cfg: TrainConfig, roll_cfg: RolloutConfig, models,
     return out
 
 
-def check_rollout_supported(cfg: TrainConfig, teacher: bool) -> None:
+def check_rollout_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice cannot run."""
     if cfg.family != "et":
         raise NotImplementedError(
@@ -107,21 +117,20 @@ def check_rollout_supported(cfg: TrainConfig, teacher: bool) -> None:
     if cfg.et_decode_trunk:
         raise NotImplementedError(
             "--et_decode_trunk is ROADMAP.md queue 1 item 12")
-    if teacher and cfg.fused_teacher:
-        raise NotImplementedError(
-            "the fused teacher rollout is ROADMAP.md queue 1 item 7; pass "
-            "--fused_teacher False to run the teacher eval step by step")
 
 
 def make_eval_rollout(cfg: TrainConfig, bert_model, darknet_model, vln_model,
                       teacher: bool, collect_ha: bool = False,
-                      compute_losses: bool = True) -> Callable:
+                      compute_losses: bool = True,
+                      collect_debug: bool = False) -> Callable:
     """Build the eval rollout ``eval_fn(map_bank, batch, generator) ->
     RolloutOutputs`` over the models' current weights.
 
     ``teacher=False`` is the nav eval (student-forced closed loop; with
     ``compute_losses=False`` the serving rollout); ``teacher=True`` with
     ``collect_ha`` is the human-attention eval (src/xview_et/main.py:188-239).
+    ``collect_debug`` also returns the per-step views and pred/GT saliency
+    maps for the inference-mode debug images (agent.py:694-706).
 
     ``cfg.fold_bn_eval`` (default): the vision tower runs as its folded
     inference variant — eval-mode BatchNorm and the input ``/std`` are folded
@@ -131,13 +140,15 @@ def make_eval_rollout(cfg: TrainConfig, bert_model, darknet_model, vln_model,
     ``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32`` to False.
     """
-    check_rollout_supported(cfg, teacher)
+    check_rollout_supported(cfg)
     use_fp32_numerics()
     if cfg.fold_bn_eval:
         dev = next(darknet_model.parameters()).device
         folded = Darknet(darknet_model.cfg, folded=True).to(dev).eval()
     roll = cfg.rollout_cfg(teacher, collect_ha_metrics=collect_ha,
                            compute_losses=compute_losses,
+                           collect_views=collect_debug,
+                           collect_saliency=collect_debug,
                            fused_input_norm=cfg.fold_bn_eval)
 
     @torch.inference_mode()

@@ -18,13 +18,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
              Darknet-53 at 224 px, HAA trunk 2×768, T = 10, a 4096 px
              8-slot map bank), fp32 and the exact render, random weights
              from a seed: Navigator serves 3 requests of 8 items (no
-             saliency-kernel launch), then the student nav eval and the
-             teacher HA eval run over the same 24 items (T launches per
-             batch each).
-5. parity  — one student rollout at B = 2 on the card and on the CPU (plain
+             saliency-kernel launch), then over the same 24 items the
+             student nav eval (T launches per batch), the time-fused
+             teacher HA eval (one launch per batch, N = T·B = 80) and the
+             step-by-step HA eval (T launches per batch), the last two held
+             against each other.
+5. valid   — the port's validation driver, ``valid()``, at full width on an
+             ANDH-format dataset written here (val_seen / val_unseen JSON,
+             the maps as .tif files), the random weights through
+             ``--resume_file`` as a reference-format .pt, ``--inference``:
+             its metric records, debug images and launch counts.
+6. parity  — one student rollout at B = 2 on the card and on the CPU (plain
              versions) with the same weights and inputs.
-6. profile — one nav-eval batch under torch.profiler (device busy time, top
-             kernels) and each layer of a rollout step timed alone.
+7. profile — one nav-eval batch and one fused HA-eval batch under
+             torch.profiler (device busy time, top kernels) and each layer
+             of a rollout step timed alone.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -338,9 +346,30 @@ def build_args(out_dir, extra=()):
     return parse_args([
         "--output_dir", out_dir, "--seed", str(SEED),
         "--max_action_len", str(T_STEPS), "--batch_size", str(SERVE_BATCH),
-        "--render_twopass", "False", "--bf16", "False",
-        "--fused_teacher", "False", *extra,
+        "--render_twopass", "False", "--bf16", "False", *extra,
     ])
+
+
+def _rollouts_agree(fused, step, where):
+    """The fused HA eval against the step loop: stop flags identical;
+    actions, corners, HA precision, recall and NSS within 1e-4."""
+    import torch
+
+    for name in ("alive_pre", "alive_post", "ha_valid"):
+        if not torch.equal(getattr(fused, name), getattr(step, name)):
+            fail(f"{where}: {name} differ between the fused and step HA evals")
+    m = step.ha_valid
+    err = 0.0
+    for name in ("actions_wp", "actions_alt", "pred_progress", "corners",
+                 "ha_precision", "ha_recall", "ha_nss"):
+        a, b = getattr(fused, name), getattr(step, name)
+        if name.startswith("ha_"):
+            a, b = a[m], b[m]
+        d = (a - b).abs().max().item() if a.numel() else 0.0
+        if not d <= 1e-4:
+            fail(f"{where}: {name} differ by {d} between the fused and step HA evals")
+        err = max(err, d)
+    return err
 
 
 def phase_slice(card, device="cuda", extra_args=()):
@@ -386,40 +415,153 @@ def phase_slice(card, device="cuda", extra_args=()):
     log(f"[slice] serving: {len(preds)} predictions in {serve_s:.3f} s "
         f"(3 requests x {SERVE_BATCH}), saliency_stats launches 0 | {card}")
 
-    # ---- validation: student nav eval + teacher HA eval ----
-    nav_eval = make_eval_rollout(nav.cfg, nav.bert, nav.darknet, nav.vln,
-                                 teacher=False, compute_losses=True)
-    ha_eval = make_eval_rollout(nav.cfg, nav.bert, nav.darknet, nav.vln,
-                                teacher=True, collect_ha=True)
+    # ---- validation: student nav eval, fused and step-by-step HA evals ----
+    import dataclasses
+
+    paths = (
+        ("nav_eval", make_eval_rollout(nav.cfg, nav.bert, nav.darknet, nav.vln,
+                                       teacher=False, compute_losses=True), T_STEPS),
+        ("ha_eval_fused", make_eval_rollout(nav.cfg, nav.bert, nav.darknet, nav.vln,
+                                            teacher=True, collect_ha=True), 1),
+        ("ha_eval_step", make_eval_rollout(
+            dataclasses.replace(nav.cfg, fused_teacher=False), nav.bert, nav.darknet,
+            nav.vln, teacher=True, collect_ha=True), T_STEPS),
+    )
+    on_card = torch.device(device).type == "cuda"
     norm = [Navigator._normalize_item(it) for it in items]
     chunks = [nav.prepare(norm[lo: lo + SERVE_BATCH])
               for lo in range(0, N_ITEMS, SERVE_BATCH)]
     sync(device)
-    gen = torch.Generator(device).manual_seed(SEED)
-    saliency_stats.launches = 0
-    for name, fn, ha in (("nav_eval", nav_eval, False), ("ha_eval", ha_eval, True)):
+    launches, outs, ha_metrics = {}, {}, {}
+    for name, fn, per_batch in paths:
+        saliency_stats.launches = 0
         t0 = time.perf_counter()
-        out_preds = {}
+        out_preds, walls, outs[name] = {}, [], []
         for bank, batch, meta in chunks:
+            tb = time.perf_counter()
             before = saliency_stats.launches
-            out = fn(bank, batch, gen)
+            out = fn(bank, batch, torch.Generator(device).manual_seed(SEED)).cpu()
+            walls.append(time.perf_counter() - tb)
             got = saliency_stats.launches - before
-            if got != T_STEPS:
+            if on_card and got != per_batch:
                 fail(f"{name}: {got} saliency_stats launches in a batch, "
-                     f"expected T = {T_STEPS}")
-            out = out.cpu()
+                     f"expected {per_batch}")
             if not all(np.isfinite(getattr(out, f).numpy()).all()
                        for f in ("actions_wp", "corners", "loss")):
                 fail(f"{name}: non-finite outputs")
+            outs[name].append(out)
             out_preds.update(assemble_trajectories(out, meta))
         wall = time.perf_counter() - t0
-        metrics, _ = eval_metrics(out_preds, human_att_eval=ha)
-        log(f"[slice] {name}: {len(out_preds)} episodes in {wall:.3f} s "
+        launches[name] = saliency_stats.launches
+        metrics, _ = eval_metrics(out_preds, human_att_eval=name != "nav_eval")
+        ha_metrics[name] = metrics
+        log(f"[slice] {name}: {len(out_preds)} episodes in {wall:.3f} s (per batch "
+            f"{', '.join(f'{w:.3f}' for w in walls)} s), saliency_stats launches "
+            f"{launches[name]} ({per_batch} per batch of {SERVE_BATCH}, N = "
+            f"{SERVE_BATCH * (T_STEPS if per_batch == 1 else 1)}) "
             f"{json.dumps(metrics, sort_keys=True)} | {card}")
-    main_launches = saliency_stats.launches
-    if main_launches == 0:
-        fail("the main path launched no saliency_stats kernel")
-    return nav, norm, main_launches
+    err = max(_rollouts_agree(f, s, f"batch {i}") for i, (f, s) in enumerate(
+        zip(outs["ha_eval_fused"], outs["ha_eval_step"])))
+    for k, v in ha_metrics["ha_eval_step"].items():
+        if not abs(ha_metrics["ha_eval_fused"][k] - v) <= 1e-4:
+            fail(f"HA metric {k}: fused {ha_metrics['ha_eval_fused'][k]} vs step {v}")
+    log(f"[slice] fused vs step HA eval: stops identical, max diff {err} "
+        "(actions, corners, HA), HA metrics within 1e-4")
+    return nav, norm, maps, launches
+def write_dataset(root, maps, items):
+    """The smoke items as an ANDH dataset: ``val_seen`` (the first 16
+    items), ``val_unseen`` (the other 8) and the maps as .tif files (BGR, as
+    OpenCV writes and the bank decodes them)."""
+    import cv2
+
+    anno = os.path.join(root, "AVDN", "annotations")
+    img = os.path.join(root, "AVDN", "train_images")
+    os.makedirs(anno, exist_ok=True)
+    os.makedirs(img, exist_ok=True)
+    for k, m in enumerate(maps):
+        if not cv2.imwrite(os.path.join(img, f"smoke_map_{k}.tif"), m[:, :, ::-1]):
+            fail(f"could not write smoke_map_{k}.tif")
+    for split, part in (("val_seen", items[:16]), ("val_unseen", items[16:])):
+        with open(os.path.join(anno, f"{split}_data.json"), "w") as f:
+            json.dump(part, f)
+
+
+def save_agent(nav, path):
+    """The Navigator's weights as a reference-format agent checkpoint, with
+    the ``position_ids`` buffer a released HF BERT carries."""
+    import torch
+
+    blob = {}
+    for key, model in (("lang_model", nav.bert), ("vision_model", nav.darknet),
+                       ("vln_model", nav.vln)):
+        sd = {k: v.cpu() for k, v in model.state_dict().items()}
+        blob[key] = {"epoch": 1, "state_dict": sd}
+    blob["lang_model"]["state_dict"]["bert.embeddings.position_ids"] = \
+        torch.arange(512)[None]
+    torch.save(blob, path)
+
+
+def phase_valid(card, nav, maps, device="cuda", extra_args=()):
+    """``valid()`` at full width on the smoke dataset: T saliency launches
+    per nav batch and one per HA batch, the metric keys of the exact-render
+    golden with finite values, and the debug images."""
+    import torch
+
+    from avdn_tpu_torch.ops.saliency import saliency_stats
+    from avdn_tpu_torch.train.loop import valid
+
+    root = os.path.join(ROOT, "build", "chip_smoke_valid")
+    t0 = time.perf_counter()
+    write_dataset(os.path.join(root, "data"), maps, make_items())
+    pt = os.path.join(root, "agent.pt")
+    save_agent(nav, pt)
+    log(f"[valid] dataset and checkpoint written in {time.perf_counter() - t0:.3f} s")
+    args = build_args(os.path.join(root, "out"), [
+        "--root_dir", os.path.join(root, "data"), "--inference", "True",
+        "--resume_file", pt, *extra_args])
+    for name in ("metrics.jsonl", "valid.txt"):
+        if os.path.exists(os.path.join(args.log_dir, name)):
+            os.remove(os.path.join(args.log_dir, name))
+
+    saliency_stats.launches = 0
+    t0 = time.perf_counter()
+    results, timers = valid(args, device=device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = saliency_stats.launches
+    n_batches = -(-16 // SERVE_BATCH) + -(-8 // SERVE_BATCH)
+    want = n_batches * (T_STEPS + 1)
+    if torch.device(device).type == "cuda" and launches != want:
+        fail(f"valid: {launches} saliency_stats launches, expected {want} "
+             f"(T = {T_STEPS} per nav batch, 1 per HA batch, {n_batches} batches each)")
+
+    with open(os.path.join(ROOT, "tests", "golden", "eval_metrics_exact.json")) as f:
+        golden = set(json.load(f))
+    with open(os.path.join(args.log_dir, "metrics.jsonl")) as f:
+        got = {k: v for line in f for k, v in json.loads(line).items()
+               if k != "step" and not k.startswith("throughput/")}
+    if set(got) != golden or not os.path.exists(os.path.join(args.log_dir, "valid.txt")):
+        fail(f"valid: metric keys differ from the golden's: +{sorted(set(got) - golden)} "
+             f"-{sorted(golden - set(got))}")
+    bad = [k for k, v in got.items() if not (isinstance(v, float) and v == v
+                                              and abs(v) != float("inf"))]
+    if bad:
+        fail(f"valid: non-finite metrics {bad}")
+    images = os.listdir(os.path.join(args.pred_dir, "debug_images"))
+    overlays = [n for n in images if "_att" not in n and "_input" not in n]
+    heatmaps = [n for n in images if "_pred_att_" in n]
+    if len(overlays) < N_ITEMS or not heatmaps:
+        fail(f"valid: {len(overlays)} trajectory overlays and {len(heatmaps)} "
+             "saliency heatmaps written")
+    t = timers.totals
+    log(f"[valid] valid(): {wall:.3f} s wall; nav eval {t['nav_eval']:.3f} s, HA eval "
+        f"{t['ha_eval']:.3f} s, debug images {t['debug_images']:.3f} s (the heatmaps "
+        "inside the HA eval), map loading "
+        f"{t['map_load']:.3f} s summed over decode threads ({timers.counts['map_load']} "
+        f"maps, overlapping the evals); saliency_stats launches {launches} "
+        f"(T = {T_STEPS} per nav batch, 1 per HA batch); {len(images)} debug images | {card}")
+    log(f"[valid] metrics {json.dumps(results, sort_keys=True)}")
+    return launches
 
 
 def phase_parity(nav, items):
@@ -450,9 +592,10 @@ def phase_parity(nav, items):
 
 
 def phase_profile(nav, items, card):
-    """Where one nav-eval batch (B = 8, T = 10) spends its time: the device
-    busy share from torch.profiler, the top kernels by device time, and each
-    layer of a rollout step timed alone with CUDA events."""
+    """Where one nav-eval batch and one fused HA-eval batch (B = 8, T = 10)
+    spend their time: the device busy share from torch.profiler, the top
+    kernels by device time, and each layer of a rollout step timed alone
+    with CUDA events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -467,27 +610,31 @@ def phase_profile(nav, items, card):
     bank, batch, _ = nav.prepare(items[:SERVE_BATCH])
     ep = batch.episode
     gen = torch.Generator("cuda").manual_seed(SEED)
-    nav_eval = make_eval_rollout(nav.cfg, nav.bert, nav.darknet, nav.vln,
-                                 teacher=False, compute_losses=True)
-    nav_eval(bank, batch, gen)
-    sync("cuda")
-    t0 = time.perf_counter()
-    nav_eval(bank, batch, gen)
-    sync("cuda")
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        nav_eval(bank, batch, gen)
+    for name, fn in (
+            ("nav_eval", make_eval_rollout(nav.cfg, nav.bert, nav.darknet, nav.vln,
+                                           teacher=False, compute_losses=True)),
+            ("ha_eval_fused", make_eval_rollout(nav.cfg, nav.bert, nav.darknet,
+                                                nav.vln, teacher=True, collect_ha=True))):
+        fn(bank, batch, gen)
         sync("cuda")
+        t0 = time.perf_counter()
+        fn(bank, batch, gen)
+        sync("cuda")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(bank, batch, gen)
+            sync("cuda")
 
-    kernels = kernel_events(prof)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[profile] nav_eval B={SERVE_BATCH} T={T_STEPS}: wall {wall_ms:.3f} ms "
-        f"(unprofiled), kernels {busy_ms:.3f} ms in "
-        f"{sum(e.count for e in kernels)} launches (profiled run), device idle "
-        f"{1 - busy_ms / wall_ms:.3f} of the unprofiled wall | {card}")
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
-            f"{e.key[:90]}")
+        kernels = kernel_events(prof)
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        log(f"[profile] {name} B={SERVE_BATCH} T={T_STEPS}: wall {wall_ms:.3f} ms "
+            f"(unprofiled), kernels {busy_ms:.3f} ms in "
+            f"{sum(e.count for e in kernels)} launches (profiled run), device idle "
+            f"{1 - busy_ms / wall_ms:.3f} of the unprofiled wall | {card}")
+        for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:10]:
+            log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+                f"{e.key[:90]}")
 
     B, T = SERVE_BATCH, T_STEPS
     with torch.inference_mode():
@@ -541,7 +688,8 @@ def main() -> None:
     card = phase_device()
     phase_build()
     krec = phase_kernels(card)
-    nav, items, launches = phase_slice(card)
+    nav, items, maps, launches = phase_slice(card)
+    launches["valid"] = phase_valid(card, nav, maps)
     phase_parity(nav, items)
     phase_profile(nav, items, card)
 
@@ -553,7 +701,8 @@ def main() -> None:
         "route": "cuda",
         "source": "avdn_tpu_torch/csrc/saliency_stats.cu",
         "replaces": "avdn_tpu/ops/saliency_pallas.py:41",
-        "launches": launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": max(r["max_abs_err"] for r in krec.values()),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

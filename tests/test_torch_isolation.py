@@ -41,7 +41,10 @@ def test_import_loads_no_jax_or_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     modules = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "avdn_tpu_torch.serve" in modules
+    for name in ("serve", "train.loop", "rollout.fused", "models.et_fast",
+                 "data.annotations", "utils.logging", "utils.seed", "viz",
+                 "cli.main", "cli.train_et"):
+        assert "avdn_tpu_torch." + name in modules
     assert [m for m in modules if _forbidden(m)] == []
 
 
@@ -65,7 +68,9 @@ def test_entry_points_without_card_raise(tmp_path):
     _cpu_only()
     from avdn_tpu_torch.config import Args, postprocess_args
     from avdn_tpu_torch.data.maps import DeviceMapBank
+    from avdn_tpu_torch.cli.train_et import main as cli_main
     from avdn_tpu_torch.serve import Navigator
+    from avdn_tpu_torch.train.loop import valid
 
     args = postprocess_args(Args(output_dir=str(tmp_path), render_twopass=False,
                                  bf16=False))
@@ -73,6 +78,11 @@ def test_entry_points_without_card_raise(tmp_path):
         Navigator(args)
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceMapBank(str(tmp_path), (64, 64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        valid(args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_main(["--output_dir", str(tmp_path), "--inference", "True",
+                  "--render_twopass", "False", "--bf16", "False"])
 
 
 def test_chip_smoke_fails_without_card_or_package(tmp_path):
@@ -112,18 +122,51 @@ def test_unsupported_flags_raise(case, tmp_path):
     device = torch.device("cuda" if case == "bf16_unset_on_card" else "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         check_supported(args, device)
-        check_rollout_supported(eval_config_from_args(args), teacher=False)
+        check_rollout_supported(eval_config_from_args(args))
 
 
 def test_fused_teacher_rollout_raises(tmp_path):
+    """The fused teacher path runs in eval mode (the default for the HA
+    eval); its train mode and the LSTM family raise, naming their items."""
+    from torch import nn
+
     from avdn_tpu_torch.config import Args, postprocess_args
+    from avdn_tpu_torch.rollout.fused import rollout_teacher_fused
     from avdn_tpu_torch.train.loop import eval_config_from_args
     from avdn_tpu_torch.train.step import check_rollout_supported
 
     args = postprocess_args(Args(output_dir=str(tmp_path), render_twopass=False,
                                  bf16=False))
     cfg = eval_config_from_args(args)
-    assert cfg.fused_teacher
-    check_rollout_supported(cfg, teacher=False)  # the student rollout runs
-    with pytest.raises(NotImplementedError, match="fused teacher"):
-        check_rollout_supported(cfg, teacher=True)
+    assert cfg.fused_teacher and cfg.fast_eval_trunk
+    check_rollout_supported(cfg)
+    roll = cfg.rollout_cfg(teacher=True)
+    assert roll.fused_teacher and roll.fast_eval_trunk
+    dk, vln = nn.Linear(1, 1), nn.Linear(1, 1)
+    kw = dict(map_bank=None, batch=None, cfg=roll, generator=None)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        rollout_teacher_fused(family="et", darknet_model=dk, vln_model=vln, **kw)
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        rollout_teacher_fused(family="lstm", darknet_model=dk.eval(),
+                              vln_model=vln.eval(), **kw)
+
+
+def test_driver_rejects_what_it_cannot_run(tmp_path, monkeypatch):
+    """The validation driver raises, naming the ROADMAP.md item, for
+    training, orbax checkpoints and multi-process runs."""
+    from avdn_tpu_torch.cli.train_et import main as cli_main
+    from avdn_tpu_torch.config import Args, postprocess_args
+    from avdn_tpu_torch.train.loop import valid
+
+    base = ["--output_dir", str(tmp_path), "--render_twopass", "False",
+            "--bf16", "False"]
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        cli_main(base, device="cpu")
+    for resume in ("latest", str(tmp_path)):
+        args = postprocess_args(Args(output_dir=str(tmp_path), render_twopass=False,
+                                     bf16=False, inference=True, resume_file=resume))
+        with pytest.raises(NotImplementedError, match="export_torch_ckpt"):
+            valid(args, device="cpu")
+    monkeypatch.setenv("AVDN_NUM_PROCESSES", "2")
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        cli_main(base + ["--inference", "True"], device="cpu")

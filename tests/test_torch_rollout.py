@@ -83,6 +83,7 @@ def port_models(pargs, weights):
 
 def both_batches(args, pargs, items):
     """The same items through each package's bank + batcher."""
+    from avdn_tpu.data import native
     from avdn_tpu.data.batcher import make_train_batch as jax_batch
     from avdn_tpu.data.maps import DeviceMapBank as JaxBank
     from avdn_tpu.data.tokenizer import WordPieceTokenizer as JaxTok
@@ -92,6 +93,10 @@ def both_batches(args, pargs, items):
     from avdn_tpu_torch.data.tokenizer import WordPieceTokenizer
     from avdn_tpu_torch.train.loop import batcher_config
 
+    # load the JAX package's native resampler before its bank's decode
+    # threads do: a thread that races the first load falls back to OpenCV
+    # (±1 intensity; ROADMAP.md queue 3)
+    native.available()
     hw = (args.map_bank_px, args.map_bank_px)
     jbank = JaxBank(args.val_dataset_dir, hw, n_slots=args.map_bank_slots)
     jarr, jslots = jbank.prepare(items)
