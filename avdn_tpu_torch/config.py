@@ -82,14 +82,14 @@ class Args:
     # family (framework-native)
     family: str = "et"
     # Tristate: None (default) = bfloat16 tower compute for EVAL/SERVING on
-    # TPU (fp32 on CPU backends — same auto-fallback rule as render_bf16),
+    # the card (fp32 on the CPU — same auto-fallback rule as render_bf16),
     # fp32 for TRAIN (the shipped configuration — metric equivalence of the
     # bf16 eval towers is golden-gated alongside the render modes,
     # tests/test_render_mode_goldens.py 'twopass_bf16'); True/False forces
     # both paths. Params/optimizer always stay fp32.
     bf16: Optional[bool] = None
     render_subsample: int = 1  # >1: fast non-parity warp (PERF.md)
-    # Tristate: None (default) = two-pass MXU warp for EVAL/SERVING, exact
+    # Tristate: None (default) = two-pass warp for EVAL/SERVING, exact
     # gather for TRAIN (the shipped configuration — metric equivalence is
     # golden-gated, tests/test_render_mode_goldens.py); True/False forces
     # both paths. --render_twopass False restores strict cv2 eval parity.
@@ -98,7 +98,7 @@ class Args:
     render_bf16: bool = True  # bf16 two-pass warp einsums (fp32 for parity)
     fold_bn_eval: bool = True  # fold BN + input norm into eval conv weights
     quant: str = "none"  # "int8": dynamic-int8 eval/serving vision tower
-    profile_dir: Optional[str] = None  # capture a jax profiler trace here
+    profile_dir: Optional[str] = None  # capture a torch.profiler trace here
     grad_accum: int = 1  # micro-batch count (batch_size must divide evenly)
     remat: bool = False  # rematerialise rollout steps (fit bigger train batches)
     remat_policy: str = "full"  # "full" | "dots" (save matmul outputs)
@@ -132,7 +132,8 @@ _PRESETS = {
     "reference": {},
     # the JAX package's measured-best recipe: bf16 tower compute, two-pass
     # render in train too (eval/serving already default to it), batch 16
-    # with dots-policy remat. Not runnable by the port yet (bf16, two-pass).
+    # with dots-policy remat. The port runs its eval side; training is
+    # ROADMAP.md queue 1 item 10.
     "production": dict(
         batch_size=16,
         bf16=True,
@@ -185,7 +186,7 @@ _HELP = {
     "submit": "add test_unseen and dump the Eval.ai output_test_result.npy",
     "family": "'et' (HAA-Transformer) or 'lstm' (HAA-LSTM)",
     "bf16": "bfloat16 tower compute (fp32 params). Default (unset): bf16 "
-            "for eval/serving on TPU, fp32 for train and on CPU backends; "
+            "for eval/serving on the card, fp32 for train and on the CPU; "
             "pass True/False to force both paths (False = fp32 everywhere)",
     "render_subsample": ">1: low-res warp + upscale (fastest render)",
     "render_twopass": "full-res 2-pass warp. "
@@ -198,10 +199,11 @@ _HELP = {
     "fold_bn_eval": "fold eval-mode BatchNorm + input normalisation into the "
                     "conv weights (inference transform; same math)",
     "quant": "'int8': eval/serving vision tower in dynamic symmetric int8 "
-             "(per-channel weights, per-tensor activations, s32 accum on "
-             "the 2x-peak int8 MXU). Opt-in approximation — error bounds "
-             "in tests/test_quant.py; eval-only (training is unaffected)",
-    "profile_dir": "capture a jax profiler trace into this directory",
+             "(per-channel weights, per-example activations, the integer "
+             "values convolved in fp32). Opt-in approximation — error "
+             "bounds in tests/test_quant.py; eval-only (training is "
+             "unaffected)",
+    "profile_dir": "capture a torch.profiler trace into this directory",
     "grad_accum": "micro-batch count; must divide batch_size. NOT numerically "
                   "identical to the full batch: episode-alive loss gating, BN "
                   "stats, and dropout draws are per-micro-batch (PERF.md)",

@@ -8,19 +8,18 @@ HF/reference parameter names (``bert.embeddings.*``,
 ``compat/from_jax.py:bert_state_dict`` loads strictly.
 
 Returns the reference's triple: token features (B, L, 768), the 49-d head
-output (queries the visual spatial attention), and the pooler vector.
+output (queries the visual spatial attention), and the pooler vector, in the
+compute ``dtype`` (flax's rules, ``models/layers.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from avdn_tpu_torch.models.layers import MLPHead
+from avdn_tpu_torch.models.layers import Dense, Embedding, LayerNorm, MLPHead, gelu, inv_sqrt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,28 +42,29 @@ class BertConfig:
 
 
 class _Embeddings(nn.Module):
-    def __init__(self, c: BertConfig):
+    def __init__(self, c: BertConfig, dtype):
         super().__init__()
-        self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size)
-        self.position_embeddings = nn.Embedding(c.max_position, c.hidden_size)
-        self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.word_embeddings = Embedding(c.vocab_size, c.hidden_size, dtype)
+        self.position_embeddings = Embedding(c.max_position, c.hidden_size, dtype)
+        self.token_type_embeddings = Embedding(c.type_vocab_size, c.hidden_size, dtype)
+        self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
 
     def forward(self, input_ids):
         L = input_ids.shape[1]
         pos = torch.arange(L, device=input_ids.device)[None, :]
-        x = (self.word_embeddings(input_ids) + self.position_embeddings(pos)
-             + self.token_type_embeddings(torch.zeros_like(input_ids)))
-        return self.LayerNorm(x)
+        x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
+        # the last sum enters the LayerNorm unrounded (models/layers.py)
+        return self.LayerNorm(
+            x.float() + self.token_type_embeddings(torch.zeros_like(input_ids)).float())
 
 
 class _SelfAttention(nn.Module):
-    def __init__(self, c: BertConfig):
+    def __init__(self, c: BertConfig, dtype):
         super().__init__()
         self.num_heads = c.num_heads
-        self.query = nn.Linear(c.hidden_size, c.hidden_size)
-        self.key = nn.Linear(c.hidden_size, c.hidden_size)
-        self.value = nn.Linear(c.hidden_size, c.hidden_size)
+        self.query = Dense(c.hidden_size, c.hidden_size, dtype=dtype)
+        self.key = Dense(c.hidden_size, c.hidden_size, dtype=dtype)
+        self.value = Dense(c.hidden_size, c.hidden_size, dtype=dtype)
 
     def forward(self, x, bias):
         B, S, D = x.shape
@@ -75,11 +75,12 @@ class _SelfAttention(nn.Module):
             return t.reshape(B, S, H, hd).transpose(1, 2)
 
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
-        logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(hd)
+        # float32 from the product on (JAX divides by a float32 scalar)
+        logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * inv_sqrt(hd)
         if bias is not None:
             logits = logits + bias
         probs = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
         return out.transpose(1, 2).reshape(B, S, D)
 
 
@@ -87,40 +88,40 @@ class _DenseNorm(nn.Module):
     """Dense → residual → LayerNorm (HF ``BertSelfOutput`` / ``BertOutput``
     in eval mode)."""
 
-    def __init__(self, d_in: int, c: BertConfig):
+    def __init__(self, d_in: int, c: BertConfig, dtype):
         super().__init__()
-        self.dense = nn.Linear(d_in, c.hidden_size)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.dense = Dense(d_in, c.hidden_size, dtype=dtype)
+        self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
 
     def forward(self, h, residual):
-        return self.LayerNorm(residual + self.dense(h))
+        return self.LayerNorm(residual.float() + self.dense(h).float())
 
 
 class _Attention(nn.Module):
-    def __init__(self, c: BertConfig):
+    def __init__(self, c: BertConfig, dtype):
         super().__init__()
-        self.self = _SelfAttention(c)
-        self.output = _DenseNorm(c.hidden_size, c)
+        self.self = _SelfAttention(c, dtype)
+        self.output = _DenseNorm(c.hidden_size, c, dtype)
 
     def forward(self, x, bias):
         return self.output(self.self(x, bias), x)
 
 
 class _Intermediate(nn.Module):
-    def __init__(self, c: BertConfig):
+    def __init__(self, c: BertConfig, dtype):
         super().__init__()
-        self.dense = nn.Linear(c.hidden_size, c.intermediate_size)
+        self.dense = Dense(c.hidden_size, c.intermediate_size, dtype=dtype)
 
     def forward(self, x):
-        return F.gelu(self.dense(x))  # exact erf GELU
+        return gelu(self.dense(x))  # exact erf GELU
 
 
 class _Layer(nn.Module):
-    def __init__(self, c: BertConfig):
+    def __init__(self, c: BertConfig, dtype):
         super().__init__()
-        self.attention = _Attention(c)
-        self.intermediate = _Intermediate(c)
-        self.output = _DenseNorm(c.intermediate_size, c)
+        self.attention = _Attention(c, dtype)
+        self.intermediate = _Intermediate(c, dtype)
+        self.output = _DenseNorm(c.intermediate_size, c, dtype)
 
     def forward(self, x, bias):
         x = self.attention(x, bias)
@@ -128,26 +129,26 @@ class _Layer(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, c: BertConfig):
+    def __init__(self, c: BertConfig, dtype):
         super().__init__()
-        self.layer = nn.ModuleList([_Layer(c) for _ in range(c.num_layers)])
+        self.layer = nn.ModuleList([_Layer(c, dtype) for _ in range(c.num_layers)])
 
 
 class _Pooler(nn.Module):
-    def __init__(self, c: BertConfig):
+    def __init__(self, c: BertConfig, dtype):
         super().__init__()
-        self.dense = nn.Linear(c.hidden_size, c.hidden_size)
+        self.dense = Dense(c.hidden_size, c.hidden_size, dtype=dtype)
 
     def forward(self, x):
         return torch.tanh(self.dense(x[:, 0]))
 
 
 class _BertModel(nn.Module):
-    def __init__(self, c: BertConfig):
+    def __init__(self, c: BertConfig, dtype):
         super().__init__()
-        self.embeddings = _Embeddings(c)
-        self.encoder = _Encoder(c)
-        self.pooler = _Pooler(c)
+        self.embeddings = _Embeddings(c, dtype)
+        self.encoder = _Encoder(c, dtype)
+        self.pooler = _Pooler(c, dtype)
 
 
 class BertLanguageEncoder(nn.Module):
@@ -155,22 +156,25 @@ class BertLanguageEncoder(nn.Module):
 
     ``forward(input_ids (B, L), attention_mask (B, L))`` →
     ``(sequence (B, L, D), head49 (B, 49), pooled (B, D))`` — the triple of
-    ``CustomBERTModel.forward`` (src/models/vln_model.py:148-159).
+    ``CustomBERTModel.forward`` (src/models/vln_model.py:148-159); computed
+    in ``dtype`` (float32 parameters).
     """
 
-    def __init__(self, cfg: BertConfig = BertConfig()):
+    def __init__(self, cfg: BertConfig = BertConfig(), dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
-        self.bert = _BertModel(cfg)
-        self.linears = MLPHead(cfg.hidden_size, cfg.head_dims, relu_last=True)
+        self.dtype = dtype
+        self.bert = _BertModel(cfg, dtype)
+        self.linears = MLPHead(cfg.hidden_size, cfg.head_dims, relu_last=True,
+                               dtype=dtype)
 
     def forward(self, input_ids, attention_mask=None):
         x = self.bert.embeddings(input_ids)
         bias = None
         if attention_mask is not None:
-            # HF convention: additive bias on padded keys
+            # HF convention: additive bias on padded keys (float32, as the
+            # logits it is added to)
             bias = torch.where(attention_mask.bool(), 0.0, -1e9)[:, None, None, :]
-            bias = bias.to(x.dtype)
         for layer in self.bert.encoder.layer:
             x = layer(x, bias)
         pooled = self.bert.pooler(x)

@@ -11,7 +11,9 @@ This implementation parses the same cfg format, builds the modules with the
 reference's names (``module_list.{i}.conv_{i}``,
 ``module_list.{i}.batch_norm_{i}``) and computes in NCHW inside. At the
 module boundary it takes the NHWC views the rollout engine renders and
-returns channel-major (B, C, H*W) features, like the JAX tower.
+returns channel-major (B, C, H*W) features, like the JAX tower, in the
+compute ``dtype``: as flax's ``nn.Conv(dtype=...)``, each conv casts input,
+kernel and bias to it (float32 parameters).
 """
 
 from __future__ import annotations
@@ -195,6 +197,41 @@ activation=leaky
 
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``dtype`` like flax's ``nn.Conv``: in a
+    reduced type the convolution is rounded before the bias is added, as
+    XLA does."""
+
+    def __init__(self, *args, dtype=torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.dtype = dtype
+
+    def forward(self, x):
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), None,
+                     self.stride, self.padding)
+        return y if self.bias is None else y + self.bias.to(self.dtype)[:, None, None]
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Eval-mode ``nn.BatchNorm2d`` normalising in float32 and returning
+    ``dtype`` (flax ``nn.BatchNorm(dtype=...)``)."""
+
+    def __init__(self, n: int, eps: float, dtype=torch.float32):
+        super().__init__(n, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return super().forward(x.float()).to(self.dtype)
+
+
+def leaky_slope(dtype) -> float:
+    """flax's ``leaky_relu(x, 0.01)`` multiplies by 0.01 cast to the
+    activation's dtype."""
+    return float(torch.tensor(0.01, dtype=dtype))
+
+
 def _conv_blocks(cfg: DarknetConfig):
     """(index, block) of every convolutional block after ``[net]``."""
     return [(i, b) for i, b in enumerate(cfg.block_dicts()[1:])
@@ -229,10 +266,12 @@ class Darknet(nn.Module):
     :func:`fold_darknet_params` (running stats folded into the conv weights).
     """
 
-    def __init__(self, cfg: DarknetConfig, folded: bool = False):
+    def __init__(self, cfg: DarknetConfig, folded: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
         self.folded = folded
+        self.dtype = dtype
         self._blocks = cfg.block_dicts()[1:]
         chans = output_channels(cfg)
         self.module_list = nn.ModuleList()
@@ -242,16 +281,16 @@ class Darknet(nn.Module):
                 bn = int(b.get("batch_normalize", "0")) and not folded
                 k = int(b["size"])
                 pad = (k - 1) // 2 if int(b["pad"]) else 0
-                seq.add_module(f"conv_{i}", nn.Conv2d(
+                seq.add_module(f"conv_{i}", Conv2d(
                     chans[i], int(b["filters"]), k, stride=int(b["stride"]),
-                    padding=pad, bias=not bn))
+                    padding=pad, bias=not bn, dtype=dtype))
                 if bn:
                     seq.add_module(f"batch_norm_{i}",
-                                   nn.BatchNorm2d(int(b["filters"]), eps=1e-5))
+                                   BatchNorm2d(int(b["filters"]), 1e-5, dtype))
                 if b.get("activation") == "leaky":
                     # torch nn.LeakyReLU() default slope 0.01
                     # (src/models/dark_net.py:33)
-                    seq.add_module(f"leaky_{i}", nn.LeakyReLU(0.01))
+                    seq.add_module(f"leaky_{i}", nn.LeakyReLU(leaky_slope(dtype)))
             elif b["type"] not in ("upsample", "route", "shortcut", "maxpool",
                                    "yolo"):
                 raise ValueError(f"unsupported block type: {b['type']}")

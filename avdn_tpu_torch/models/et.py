@@ -14,7 +14,8 @@ parameter names:
   action head (src/models/ET_haa.py:157-167).
 
 Outputs: action (B, 4) = (Δx ratio, Δy ratio, altitude, progress) and
-saliency (B, 224, 224).
+saliency (B, 224, 224), in the compute ``dtype`` (flax's rules,
+``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import torch
 from torch import nn
 
 from avdn_tpu_torch.models.layers import (
+    Dense,
+    LayerNorm,
     MLPHead,
     SoftDotAttention,
     TransformerEncoderLayer,
@@ -46,27 +49,31 @@ class ETConfig:
 
 
 class _EncoderVL(nn.Module):
-    def __init__(self, c: ETConfig):
+    def __init__(self, c: ETConfig, dtype):
         super().__init__()
-        self.enc_layernorm = nn.LayerNorm(c.demb, eps=1e-5)
+        self.enc_layernorm = LayerNorm(c.demb, eps=1e-5, dtype=dtype)
         self.enc_transformer = nn.Module()
         self.enc_transformer.layers = nn.ModuleList([
-            TransformerEncoderLayer(c.demb, c.encoder_heads, c.demb)
+            TransformerEncoderLayer(c.demb, c.encoder_heads, c.demb, dtype)
             for _ in range(c.encoder_layers)
         ])
 
 
 class HAATransformer(nn.Module):
-    def __init__(self, cfg: ETConfig = ETConfig()):
+    def __init__(self, cfg: ETConfig = ETConfig(), dtype=torch.float32):
         super().__init__()
         c = cfg
         self.cfg = cfg
-        self.attention_layer_vision = SoftDotAttention(c.spatial_dim)
-        self.fc2 = nn.Linear(c.spatial_dim, c.demb)  # frame projection
-        self.direction_embedding = nn.Linear(2, c.demb)
-        self.encoder_vl = _EncoderVL(c)
-        self.decoder_2_action_full = MLPHead(c.demb, (256, 32, 4))
-        self.fc = nn.Sequential(nn.Linear(c.demb, 64), nn.ReLU())  # saliency
+        self.dtype = dtype
+        self.attention_layer_vision = SoftDotAttention(c.spatial_dim, dtype)
+        self.fc2 = Dense(c.spatial_dim, c.demb, dtype=dtype)  # frame projection
+        # promoted at once by the positional encoding: kept float32
+        self.direction_embedding = Dense(2, c.demb, dtype=dtype, keep_f32=True)
+        self.encoder_vl = _EncoderVL(c, dtype)
+        # the rollout promotes the action at once: its last layer stays float32
+        self.decoder_2_action_full = MLPHead(c.demb, (256, 32, 4), dtype=dtype,
+                                             keep_f32=True)
+        self.fc = nn.Sequential(Dense(c.demb, 64, dtype=dtype), nn.ReLU())  # saliency
         self.register_buffer(
             "pe", sinusoidal_pos_encoding(c.pos_max_len, c.demb), persistent=False)
 
@@ -94,7 +101,7 @@ class HAATransformer(nn.Module):
 
         # ---- positional encoding + trunk input ----
         lang_pe, emb_frames, emb_dirs = add_haa_pos_encoding(
-            lang, emb_frames, emb_dirs, self.pe)
+            lang, emb_frames, emb_dirs, self.pe.to(self.dtype))
         seq = torch.cat([lang_pe, emb_frames, emb_dirs], dim=1)
         seq = self.encoder_vl.enc_layernorm(seq)
 

@@ -9,6 +9,22 @@ state-dict layout (``linear_in``, ``self_attn.in_proj_weight``, Sequential
 indices), so ``compat/from_jax.py`` state dicts load strictly. Attention is
 written out as matmul + masked softmax, the JAX formulation. The port runs
 inference only, so dropout exists only where it fixes a Sequential index.
+
+Compute dtype. Every module takes a ``dtype`` (float32 or bfloat16) and
+computes as the flax module with that ``dtype`` does, parameters staying
+float32: ``Dense`` casts input, kernel and bias to it, ``LayerNorm``
+normalises in float32 and returns it, ``Embedding`` returns it. Where the
+JAX code divides attention logits by a strongly typed float32 scalar, the
+bfloat16 logits promote to float32, so the softmax and the ``probs · v``
+product run in float32 until the next ``Dense``.
+
+In bfloat16 the roundings are those XLA computes for the flax modules: each
+op's result is rounded to bfloat16 (a ``Dense`` rounds its product, then
+its bias add), EXCEPT an op whose result is at once promoted to float32 —
+XLA computes that op in float32 and never rounds it. So the residual sums
+that enter a LayerNorm, the attention logits (``q·k``), and a ``Dense``
+whose output is promoted (``keep_f32``) stay float32 here too; ``gelu`` and
+``softmax`` below follow the same rule.
 """
 
 from __future__ import annotations
@@ -21,24 +37,121 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def dense(x, weight, bias, dtype, keep_f32: bool = False):
+    """``x @ weight.T + bias`` as flax's ``nn.Dense(dtype=dtype)`` computes
+    it: input, kernel and bias cast to ``dtype``. In float32 one fused call;
+    in bfloat16 the product is rounded before the bias is added, and with
+    ``keep_f32`` (the output is promoted to float32 at once) the last op —
+    the bias add, or the product without a bias — is not rounded and the
+    result is float32."""
+    if dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    w = weight.to(dtype).t()
+    if bias is None:
+        if keep_f32:
+            return torch.matmul(x.to(dtype).float(), w.float())
+        return torch.matmul(x.to(dtype), w)
+    y = torch.matmul(x.to(dtype), w)
+    if keep_f32:
+        return y.float() + bias.to(dtype).float()
+    return y + bias.to(dtype)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` (float32 parameters, the reference's names) computing
+    in ``dtype`` like flax's ``nn.Dense`` (:func:`dense`)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.float32, keep_f32: bool = False):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+        self.keep_f32 = keep_f32
+
+    def forward(self, x):
+        return dense(x, self.weight, self.bias, self.dtype, self.keep_f32)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` normalising in float32 and returning ``dtype``, as
+    flax's ``nn.LayerNorm(dtype=...)`` does."""
+
+    def __init__(self, d: int, eps: float, dtype=torch.float32):
+        super().__init__(d, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.dtype)
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` returning ``dtype`` (flax ``nn.Embed(dtype=...)``)."""
+
+    def __init__(self, num: int, dim: int, dtype=torch.float32):
+        super().__init__(num, dim)
+        self.dtype = dtype
+
+    def forward(self, ids):
+        return super().forward(ids).to(self.dtype)
+
+
+def softmax(x, dim: int = -1):
+    """``jax.nn.softmax``: ``exp(x − max) / Σ exp(x − max)``. In bfloat16 as
+    XLA computes it: the exponentials rounded to bfloat16 for the numerator,
+    summed unrounded in float32, the sum rounded."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    d = x - x.max(dim=dim, keepdim=True).values
+    s = torch.exp(d.float()).sum(dim=dim, keepdim=True).to(x.dtype)
+    return torch.exp(d) / s
+
+
+def gelu(x):
+    """Exact (erf) GELU, ``0.5·x·erfc(−x/√2)``. In bfloat16 as XLA computes
+    ``jax.nn.gelu(approximate=False)``: ``x·bf16(√½)`` unrounded into a
+    float32 erfc, erfc and ``0.5·x`` rounded, their product rounded."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    sqrt_half = float(torch.tensor(math.sqrt(0.5), dtype=x.dtype))
+    return (0.5 * x) * torch.erfc(-x.float() * sqrt_half).to(x.dtype)
+
+
+def inv_sqrt(d: int) -> torch.Tensor:
+    """``1/√d`` as XLA folds the JAX code's ``x / jnp.sqrt(float32(d))``:
+    a float32 reciprocal constant that multiplies."""
+    return 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+
+
+def promote(*xs):
+    """The tensors cast to their promoted dtype (jnp's binary promotion
+    for float32/bfloat16 operands)."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return [x.to(dt) for x in xs]
+
+
 class SoftDotAttention(nn.Module):
     """Luong-style soft dot attention: ``h`` (B, dim) attends over
     ``context`` (B, L, dim); returns ``tanh(W_out [attn·context ; h])`` and
     the attention weights. Both projections are bias-free."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype=torch.float32):
         super().__init__()
-        self.linear_in = nn.Linear(dim, dim, bias=False)
-        self.linear_out = nn.Linear(2 * dim, dim, bias=False)
+        self.linear_in = Dense(dim, dim, bias=False, dtype=dtype)
+        self.linear_out = Dense(2 * dim, dim, bias=False, dtype=dtype)
 
     def forward(self, h, context, mask=None):
-        target = self.linear_in(h)
-        attn = torch.einsum("bld,bd->bl", context, target)
+        # a float32 context promotes the target: its product stays float32
+        lin = self.linear_in
+        target = dense(h, lin.weight, None, lin.dtype,
+                       keep_f32=context.dtype == torch.float32)
+        attn = torch.einsum("bld,bd->bl", *promote(context, target))
         if mask is not None:
             attn = attn.masked_fill(mask, float("-inf"))
-        attn = torch.softmax(attn, dim=-1)
-        weighted = torch.einsum("bl,bld->bd", attn, context)
-        out = self.linear_out(torch.cat([weighted, h], dim=-1))
+        attn = softmax(attn, dim=-1)
+        weighted = torch.einsum("bl,bld->bd", *promote(attn, context))
+        out = self.linear_out(torch.cat(promote(weighted, h), dim=-1))
         return torch.tanh(out), attn
 
 
@@ -50,11 +163,13 @@ class MLPHead(nn.Sequential):
     reference's Sequential indices."""
 
     def __init__(self, in_features: int, features: Sequence[int],
-                 relu_last: bool = False):
+                 relu_last: bool = False, dtype=torch.float32,
+                 keep_f32: bool = False):
         layers = []
         d = in_features
         for i, f in enumerate(features):
-            layers.append(nn.Linear(d, f))
+            layers.append(Dense(d, f, dtype=dtype,
+                                keep_f32=keep_f32 and i == len(features) - 1))
             if i < len(features) - 1:
                 layers += [nn.ReLU(), nn.Dropout(0.2)]
             elif relu_last:
@@ -79,14 +194,16 @@ def sinusoidal_pos_encoding(max_len: int, d_model: int, device=None) -> torch.Te
 def add_haa_pos_encoding(emb_lang, emb_frames, emb_directions, pe):
     """Add the (1/√d scaled) positional encoding with the reference's index
     scheme: language gets positions [0, L); frames AND directions share
-    positions [L, L+T) (src/models/encodings.py:22-49)."""
+    positions [L, L+T) (src/models/encodings.py:22-49). The scale is a
+    float32 scalar in the JAX code, so the sums are float32 whatever the
+    dtype of the embeddings and of ``pe``."""
     d = emb_lang.shape[-1]
     L = emb_lang.shape[1]
     T = emb_frames.shape[1]
     scale = 1.0 / math.sqrt(d)
-    lang = emb_lang + pe[:L][None] * scale
-    step_pe = pe[L: L + T][None] * scale
-    return lang, emb_frames + step_pe, emb_directions + step_pe
+    lang = emb_lang.float() + pe[:L][None].float() * scale
+    step_pe = pe[L: L + T][None].float() * scale
+    return lang, emb_frames.float() + step_pe, emb_directions.float() + step_pe
 
 
 def haa_attention_mask(len_lang: int, len_steps: int, device=None) -> torch.Tensor:
@@ -109,11 +226,28 @@ def haa_attention_mask(len_lang: int, len_steps: int, device=None) -> torch.Tens
     return torch.where(ok, zero, float("-inf"))
 
 
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``jax.image.resize``'s (n_in, n_out) bilinear upscale weights
+    (half-pixel centres, edge weights renormalised)."""
+    inv = n_in / n_out
+    sample = (torch.arange(n_out, dtype=torch.float64, device=device) + 0.5) * inv - 0.5
+    w = (1.0 - (sample[None, :] - torch.arange(n_in, dtype=torch.float64,
+                                                device=device)[:, None]).abs()).clamp(min=0)
+    return (w / w.sum(dim=0, keepdim=True)).float()
+
+
 def saliency_upsample(x8: torch.Tensor, out_hw: int = 224) -> torch.Tensor:
     """(B, 8, 8) → (B, out, out) bilinear upsample with half-pixel centers
-    (``interpolate(..., align_corners=False)``, src/models/ET_haa.py:166-167)."""
-    return F.interpolate(x8[:, None], size=(out_hw, out_hw), mode="bilinear",
-                         align_corners=False)[:, 0]
+    (``interpolate(..., align_corners=False)``, src/models/ET_haa.py:166-167).
+    A bfloat16 input is resized as ``jax.image.resize`` resizes it: the
+    weights rounded to bfloat16, rows contracted first, each contraction
+    rounded."""
+    if x8.dtype == torch.float32:
+        return F.interpolate(x8[:, None], size=(out_hw, out_hw), mode="bilinear",
+                             align_corners=False)[:, 0]
+    w = _resize_weights(x8.shape[1], out_hw, x8.device).to(x8.dtype)
+    rows = torch.einsum("bij,ip->bpj", x8, w)
+    return torch.einsum("bpj,jq->bpq", rows, w)
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -121,25 +255,28 @@ class MultiheadSelfAttention(nn.Module):
     (``in_proj_weight``/``in_proj_bias``/``out_proj``), so reference
     checkpoints load 1:1. ``bias`` is the additive (B or 1, 1, S, S) mask."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Dense(d_model, d_model, dtype=dtype)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x, bias):
         B, S, D = x.shape
         H = self.num_heads
         hd = D // H
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = dense(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
         q, k, v = (t.reshape(B, S, H, hd).transpose(1, 2)
                    for t in qkv.split(D, dim=-1))
-        logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(hd) + bias
+        # the logits promote to float32 at the division (JAX divides by a
+        # float32 scalar): softmax and probs·v run in float32
+        logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * inv_sqrt(hd) + bias
         # guard fully-masked rows (all -inf) against NaN softmax
         probs = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
-        out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
         return self.out_proj(out.transpose(1, 2).reshape(B, S, D))
 
 
@@ -149,23 +286,26 @@ class TransformerEncoderLayer(nn.Module):
     trunk, src/models/enc_vl.py:16-22): MHA → add → LN, then FF(relu) →
     add → LN."""
 
-    def __init__(self, d_model: int, num_heads: int, ff_dim: int):
+    def __init__(self, d_model: int, num_heads: int, ff_dim: int,
+                 dtype=torch.float32):
         super().__init__()
-        self.self_attn = MultiheadSelfAttention(d_model, num_heads)
-        self.linear1 = nn.Linear(d_model, ff_dim)
-        self.linear2 = nn.Linear(ff_dim, d_model)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.self_attn = MultiheadSelfAttention(d_model, num_heads, dtype)
+        self.linear1 = Dense(d_model, ff_dim, dtype=dtype)
+        self.linear2 = Dense(ff_dim, d_model, dtype=dtype)
+        self.norm1 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
+        self.norm2 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
 
     def forward(self, x, attn_mask=None, key_pad_mask=None):
-        # attn_mask: (S, S) additive; key_pad_mask: (B, S) True = masked
+        # attn_mask: (S, S) additive; key_pad_mask: (B, S) True = masked;
+        # the bias holds only 0 and -inf, so its dtype does not matter
         S = x.shape[1]
-        bias = x.new_zeros((1, 1, S, S))
+        bias = torch.zeros((1, 1, S, S), device=x.device)
         if attn_mask is not None:
             bias = bias + attn_mask[None, None]
         if key_pad_mask is not None:
-            pad = torch.zeros(key_pad_mask.shape, dtype=x.dtype, device=x.device)
+            pad = torch.zeros(key_pad_mask.shape, device=x.device)
             pad = pad.masked_fill(key_pad_mask, float("-inf"))
             bias = bias + pad[:, None, None, :]
-        x = self.norm1(x + self.self_attn(x, bias))
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+        # the residual sums enter the LayerNorms unrounded (float32)
+        x = self.norm1(x.float() + self.self_attn(x, bias).float())
+        return self.norm2(x.float() + self.linear2(F.relu(self.linear1(x))).float())

@@ -182,4 +182,4 @@ def saliency_reductions(pred: torch.Tensor, gt: torch.Tensor, nss_r: int = 0):
     :func:`saliency_reductions_plain`."""
     if pred.device.type == "cpu" and gt.device.type == "cpu":
         return saliency_reductions_plain(pred, gt, nss_r)
-    return saliency_fused(pred.float().contiguous(), gt.float().contiguous(), nss_r)[1:]
+    return saliency_fused(pred.contiguous(), gt.contiguous(), nss_r)[1:]

@@ -26,11 +26,13 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from avdn_tpu_torch.models import et_fast
 from avdn_tpu_torch.ops.losses import step_losses
 from avdn_tpu_torch.ops.saliency import saliency_reductions
 from avdn_tpu_torch.sim.dynamics import move_view_corners_batch
 from avdn_tpu_torch.sim.oracle import teacher_action_batch
 from avdn_tpu_torch.sim.render import render_batch
+from avdn_tpu_torch.sim.warp2pass import render_batch_twopass
 
 _PI_REF = 3.14159
 
@@ -65,9 +67,9 @@ class EpisodeBatch:
 
 @dataclasses.dataclass(frozen=True)
 class RolloutConfig:
-    """The eval rollout's settings (the JAX config's render-mode, remat and
-    train fields belong to paths this port has not reached; eval rollouts
-    carry no NSS loss term, ``nss_w`` = 0 in JAX)."""
+    """The eval rollout's settings (the JAX config's remat and train fields
+    belong to training, which this port has not reached; eval rollouts carry
+    no NSS loss term, ``nss_w`` = 0 in JAX)."""
 
     max_action_len: int = 10
     teacher_forcing: bool = True       # feedback mode
@@ -78,12 +80,19 @@ class RolloutConfig:
     collect_ha_metrics: bool = False   # per-step HA precision/recall + NSS
     collect_views: bool = False        # debug: return rendered views
     collect_saliency: bool = False     # debug: return pred/GT saliency maps
+    render_subsample: int = 1          # >1: low-res gather + upscale (opt-in)
+    render_twopass: bool = False       # full-res two-pass warp (sim/warp2pass.py)
+    render_crop: int = 512             # two-pass source window (>= max view px)
+    render_bf16: bool = True           # bf16 two-pass weights on the card
     fused_input_norm: bool = False     # (x−mean)/std folded into conv 1
     fused_teacher: bool = True         # teacher forcing: time-fused rollout
     # (rollout/fused.py) — the trajectory is model-independent, so render
     # and towers run once over all T·B views; student mode always steps
     fast_eval_trunk: bool = True       # fused teacher eval: ONE trunk pass
     # (models/et_fast.py) instead of T step-masked re-encodes
+    et_decode_trunk: bool = False      # step loop: incremental KV decode of
+    # the trunk (models/et_fast.py) instead of the full re-encode; exact up
+    # to reassociation, opt-in (it flips a borderline fixture episode)
 
 
 @dataclasses.dataclass
@@ -122,12 +131,18 @@ def _corners_to_img(corners, extent, lat_ratio):
     return torch.stack([x, y], dim=-1)
 
 
-def render_views(map_bank, batch: EpisodeBatch, corners):
-    """Render the batch's current views + GT saliency (exact mode; the
-    other modes are rejected when the rollout is built, train/step.py)."""
+def render_views(map_bank, batch: EpisodeBatch, corners, cfg: RolloutConfig):
+    """Render the batch's current views + GT saliency in ``cfg``'s render
+    mode: the two-pass warp, or the exact gather (subsampled with
+    ``render_subsample`` > 1). Shared by the step loop and the fused
+    teacher path."""
     quad_img = _corners_to_img(corners, batch.extent, batch.lat_ratio)
+    if cfg.render_twopass:
+        return render_batch_twopass(map_bank, batch.map_idx, quad_img,
+                                    batch.circles, batch.n_circles,
+                                    crop_hw=cfg.render_crop, bf16=cfg.render_bf16)
     return render_batch(map_bank, batch.map_idx, quad_img, batch.circles,
-                        batch.n_circles)
+                        batch.n_circles, subsample=cfg.render_subsample)
 
 
 def decode_action(action):
@@ -186,7 +201,7 @@ def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
         any_alive = ~ended.all()
 
         # ---- render current views on device ----
-        views, gt_sal = render_views(map_bank, batch, corners)
+        views, gt_sal = render_views(map_bank, batch, corners, cfg)
         # input normalisation — the /std is folded into the first conv when
         # the eval tower is BN-folded (fold_darknet_params); the mean
         # subtraction stays here (the conv zero-pads the NORMALISED tensor)
@@ -274,7 +289,10 @@ def make_et_step(darknet_model, et_model, batch: EpisodeBatch, cfg: RolloutConfi
     """ET closure: pads history to T and re-encodes the full episode each
     step (the reference's O(T²) semantics, agent.py:605-630, kept for model
     parity — the transformer *is* history-conditioned). The history buffers
-    are updated in place."""
+    are updated in place. With ``cfg.et_decode_trunk`` the re-encode is
+    replaced by the incremental KV decode (``_make_et_decode_step``)."""
+    if cfg.et_decode_trunk:
+        return _make_et_decode_step(darknet_model, et_model, batch, cfg)
     B = batch.lang_feat.shape[0]
     T = cfg.max_action_len
     dev = batch.lang_feat.device
@@ -295,6 +313,36 @@ def make_et_step(darknet_model, et_model, batch: EpisodeBatch, cfg: RolloutConfi
         state["lengths"] = state["lengths"] + (~ended).long()
         action, sal = et_model(batch.lang_feat, batch.lang_cls, state["frames"],
                                state["dirs"], state["lengths"])
+        return state, action, sal
+
+    return step, init_state
+
+
+def _make_et_decode_step(darknet_model, et_model, batch: EpisodeBatch,
+                         cfg: RolloutConfig):
+    """Incremental-decode ET closure (eval only): each step runs only the
+    two new tokens through the trunk against the cached language and
+    history keys/values (``models/et_fast.py``). Exact up to float
+    reassociation; opt-in (``--et_decode_trunk``)."""
+    B = batch.lang_feat.shape[0]
+    T = cfg.max_action_len
+    dev = batch.lang_feat.device
+    dtype = et_model.dtype
+    # episode constants: per-layer language K/V, computed once
+    lang_kv = et_fast.make_lang_cache(et_model, batch.lang_feat, dtype=dtype)
+
+    def init_state(feat_channels: int, spatial: int):
+        return {"cache": et_fast.init_cache(et_model.cfg, B, T, dtype=dtype, device=dev),
+                "lengths": torch.zeros((B,), dtype=torch.long, device=dev)}
+
+    def step(state, x, dir_feat, t, ended):
+        feats = darknet_model(x)
+        if cfg.language_only:
+            feats = torch.zeros_like(feats)
+        state["lengths"] = state["lengths"] + (~ended).long()
+        _, action, sal = et_fast.decode_step(
+            et_model, lang_kv, state["cache"], batch.lang_cls, feats, dir_feat, t,
+            state["lengths"], dtype=dtype)
         return state, action, sal
 
     return step, init_state

@@ -86,9 +86,10 @@ def teacher_geometry(batch: EpisodeBatch, cfg: RolloutConfig,
     return {k: torch.stack([y[k] for y in ys]) for k in ys[0]}
 
 
-def _render_all(map_bank, batch: EpisodeBatch, corners_tb):
-    """Render all T·B views in one call. ``corners_tb``: (T, B, 4, 2).
-    Returns (views (T, B, H, W, 3), gt_sal (T, B, H, W))."""
+def _render_all(map_bank, batch: EpisodeBatch, corners_tb, cfg: RolloutConfig):
+    """Render all T·B views in one call, in ``cfg``'s render mode.
+    ``corners_tb``: (T, B, 4, 2). Returns (views (T, B, H, W, 3), gt_sal
+    (T, B, H, W))."""
     T, B = corners_tb.shape[:2]
     tiled = dataclasses.replace(
         batch,
@@ -98,7 +99,7 @@ def _render_all(map_bank, batch: EpisodeBatch, corners_tb):
         circles=batch.circles.repeat(T, 1, 1),
         n_circles=batch.n_circles.repeat(T),
     )
-    views, gt_sal = render_views(map_bank, tiled, corners_tb.reshape(T * B, 4, 2))
+    views, gt_sal = render_views(map_bank, tiled, corners_tb.reshape(T * B, 4, 2), cfg)
     return views.reshape(T, B, *views.shape[1:]), gt_sal.reshape(T, B, *gt_sal.shape[1:])
 
 
@@ -162,7 +163,7 @@ def rollout_teacher_fused(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
     geo = teacher_geometry(batch, cfg, generator)
 
     # ---- one render of every (t, b) view ----
-    views, gt_sal = _render_all(map_bank, batch, geo["corners_pre"])
+    views, gt_sal = _render_all(map_bank, batch, geo["corners_pre"], cfg)
     mean = torch.tensor(RGB_MEAN, dtype=torch.float32, device=dev)
     std = torch.tensor(RGB_STD, dtype=torch.float32, device=dev)
     x = views - mean if cfg.fused_input_norm else (views - mean) / std

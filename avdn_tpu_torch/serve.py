@@ -5,15 +5,16 @@ agent checkpoint), then map ANDH-format annotation items to predicted
 trajectories with a student-forced rollout (``compute_losses=False`` — no
 ground truth required). Batches pad to a fixed serving batch size.
 
-    args = parse_args(["--resume_file", "agent.pt",
-                       "--render_twopass", "False", "--bf16", "False"])
+    args = parse_args(["--resume_file", "agent.pt", "--root_dir", dataset])
     nav = Navigator(args)
     preds = nav.navigate(items)              # {instr_id: {path_corners, actions, progress}}
 
 It runs on the card unless ``device="cpu"`` is passed; without a card it
-raises. The slice runs the reference numerics only: the exact render and
-fp32 (``--render_twopass False --bf16 False``; other modes raise
-``NotImplementedError``). In fp32 mode the constructor sets
+raises. Serving uses the eval config with the JAX package's defaults: the
+two-pass render (its crop sized from the annotations under ``--root_dir``
+with ``--render_crop 0``, 512 px without them), bf16 towers on the card
+(fp32 on the CPU) and the BN-folded tower; ``--render_twopass False --bf16
+False`` restore the reference numerics. The constructor sets
 ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` to False.
 """
@@ -38,8 +39,10 @@ from avdn_tpu_torch.train.loop import (
     batcher_config,
     build_models,
     check_supported,
+    eval_bf16,
     eval_config_from_args,
     init_state,
+    resolve_render_crop,
 )
 from avdn_tpu_torch.train.step import make_eval_rollout
 
@@ -60,10 +63,11 @@ class Navigator:
         self.device = resolve_device(device)
         check_supported(args, self.device)
         use_fp32_numerics()
-        self.args = args
+        self.args = args = resolve_render_crop(args)
         self.serve_batch = serve_batch or args.batch_size
         self.cfg = eval_config_from_args(args)
-        self.bert, self.darknet, self.vln = build_models(args, self.device)
+        self.bert, self.darknet, self.vln = build_models(
+            args, self.device, bf16=eval_bf16(args, self.device))
         init_state((self.bert, self.darknet, self.vln),
                    torch.Generator().manual_seed(args.seed))
         if args.resume_file:

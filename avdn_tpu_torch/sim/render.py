@@ -28,6 +28,7 @@ float32 rounding of the blend.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from avdn_tpu_torch.geometry.transforms import fma
 
@@ -66,16 +67,29 @@ def square_to_quad_homography(quad: torch.Tensor) -> torch.Tensor:
     )
 
 
-def view_to_map_coords(src_quads: torch.Tensor, out_hw: int = VIEW_HW) -> torch.Tensor:
+def unit_positions(out_hw: int, device, subsample: int = 1) -> torch.Tensor:
+    """The unit-square sample positions of an ``out_hw`` pixel grid,
+    ``i/(out-1)``, evaluated as XLA evaluates them (times the float32
+    reciprocal). With ``subsample`` > 1, the out_hw/subsample coarse grid
+    placed where a half-pixel-centred bilinear upscale reconstructs it:
+    coarse pixel g sits at fine coordinate (g + 0.5)·s − 0.5."""
+    step = torch.tensor(1.0 / (out_hw - 1.0), dtype=torch.float32, device=device)
+    g = torch.arange(out_hw // subsample, dtype=torch.float32, device=device)
+    if subsample > 1:
+        g = (g + 0.5) * subsample - 0.5
+    return g * step
+
+
+def view_to_map_coords(src_quads: torch.Tensor, out_hw: int = VIEW_HW,
+                       positions: torch.Tensor | None = None) -> torch.Tensor:
     """Continuous map-space (x, y) coordinates of every output pixel:
-    (B, 4, 2) view-area corners in map image coords → (B, out, out, 2), the
-    inverse perspective map that warpPerspective applies per pixel."""
+    (B, 4, 2) view-area corners in map image coords → (B, n, n, 2), the
+    inverse perspective map that warpPerspective applies per pixel.
+    ``positions`` (n,) overrides the unit-square sample positions (default
+    the ``out_hw`` pixel grid)."""
     H = square_to_quad_homography(src_quads.float())  # (B, 3, 3)
-    # i/(out-1) as XLA evaluates it: times the float32 reciprocal
-    step = torch.tensor(1.0 / (out_hw - 1.0), dtype=torch.float32,
-                        device=src_quads.device)
-    positions = torch.arange(out_hw, dtype=torch.float32,
-                             device=src_quads.device) * step
+    if positions is None:
+        positions = unit_positions(out_hw, src_quads.device)
     ys, xs = torch.meshgrid(positions, positions, indexing="ij")
     xs = xs[None, :, :, None]
     ys = ys[None, :, :, None]
@@ -111,7 +125,8 @@ def saliency_at(coords: torch.Tensor, circles: torch.Tensor,
 
 def render_batch(map_bank: torch.Tensor, map_idx: torch.Tensor,
                  src_quads_xy: torch.Tensor, circles: torch.Tensor,
-                 n_circles: torch.Tensor, out_hw: int = VIEW_HW):
+                 n_circles: torch.Tensor, out_hw: int = VIEW_HW,
+                 subsample: int = 1):
     """Batched exact renderer over a device-resident uint8 map bank.
 
     map_bank: (N, H, W, 3) uint8; map_idx: (B,); src_quads_xy: (B, 4, 2)
@@ -121,8 +136,15 @@ def render_batch(map_bank: torch.Tensor, map_idx: torch.Tensor,
 
     Corners are int-rounded first, like the reference (src/env.py:189-196,
     283-284); ``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+    ``subsample`` > 1 is the opt-in fast mode: the gather runs on an
+    out_hw/subsample grid and views and saliency are upscaled bilinearly
+    with half-pixel centres (``jax.image.resize``'s "bilinear" upscale, which
+    ``F.interpolate(align_corners=False)`` computes). Not cv2-exact.
     """
-    coords = view_to_map_coords(torch.round(src_quads_xy), out_hw)
+    positions = (None if subsample == 1 else
+                 unit_positions(out_hw, src_quads_xy.device, subsample))
+    coords = view_to_map_coords(torch.round(src_quads_xy), out_hw, positions)
     Hm, Wm = map_bank.shape[1], map_bank.shape[2]
     x = coords[..., 0]
     y = coords[..., 1]
@@ -146,4 +168,9 @@ def render_batch(map_bank: torch.Tensor, map_idx: torch.Tensor,
         + tap(x0i + 1, y0i + 1) * wx * wy
     )
     sal = saliency_at(coords, circles, n_circles)
+    if subsample > 1:
+        views = F.interpolate(views.permute(0, 3, 1, 2), size=(out_hw, out_hw),
+                              mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+        sal = F.interpolate(sal[:, None], size=(out_hw, out_hw), mode="bilinear",
+                            align_corners=False)[:, 0]
     return views, sal

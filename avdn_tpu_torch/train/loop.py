@@ -7,10 +7,14 @@ and the teacher-forced human-attention eval over the val splits, the metric
 record (``valid.txt``, ``metrics.jsonl``), the debug images, and with
 ``--submit`` the Eval.ai ``output_test_result.npy``.
 
-Numerics of this slice: the exact render in fp32. An unset ``--bf16`` or
-``--render_twopass`` means bf16 towers and the two-pass render for
-eval/serving on an accelerator, as in the JAX package; the port raises for
-them instead of quietly running another mode.
+Eval modes and defaults are the JAX package's: an unset ``--render_twopass``
+means the two-pass render (``sim/warp2pass.py``) with the crop sized from
+the annotations (``--render_crop 0``), an unset ``--bf16`` means bf16 towers
+on the card and fp32 on the CPU, and the Darknet tower runs BN-folded
+(``--fold_bn_eval``); ``--render_subsample``, ``--quant int8`` and
+``--et_decode_trunk`` are the opt-in modes. On the card a requested or
+defaulted bf16 runs bf16; only the CPU falls back to fp32, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import contextlib
 import json
 import math
 import os
+import sys
 import time
 
 import numpy as np
@@ -37,6 +42,7 @@ from avdn_tpu_torch.metrics.nav import assemble_trajectories, eval_metrics
 from avdn_tpu_torch.models.bert import BertConfig, BertLanguageEncoder
 from avdn_tpu_torch.models.darknet import Darknet, DarknetConfig
 from avdn_tpu_torch.models.et import ETConfig, HAATransformer
+from avdn_tpu_torch.sim.warp2pass import auto_render_crop
 from avdn_tpu_torch.train.step import TrainConfig, make_eval_rollout
 from avdn_tpu_torch.utils.logging import MetricWriter, PhaseTimer
 from avdn_tpu_torch.utils.seed import set_random_seed
@@ -44,24 +50,17 @@ from avdn_tpu_torch.viz import save_debug_overlays, save_saliency_heatmaps
 
 
 def eval_bf16(args: Args, device: torch.device) -> bool:
-    """bf16 towers for eval/serving? Unset means bf16 on the card and fp32
-    on the CPU (the JAX package's rule, ``eval_bf16``). bf16 is ROADMAP.md
-    queue 1 item 9, so it raises wherever it would be chosen."""
-    flag = args.bf16
-    if flag is None:
-        flag = device.type != "cpu"
-    if flag:
-        raise NotImplementedError(
-            "bf16 towers are ROADMAP.md queue 1 item 9; pass --bf16 False "
-            "for fp32" + (" (unset --bf16 means bf16 on the card)"
-                          if args.bf16 is None else ""))
-    return False
+    """bf16 towers for eval/serving? ``--bf16 True/False`` decides on any
+    device; unset means bf16 on the card and fp32 on the CPU (the JAX
+    package's rule, ``eval_bf16``: bf16 on a CPU is emulated and slower)."""
+    if args.bf16 is None:
+        return device.type != "cpu"
+    return bool(args.bf16)
 
 
 def check_supported(args: Args, device: torch.device) -> None:
-    """Raise ``NotImplementedError`` for every flag this slice cannot run,
+    """Raise ``NotImplementedError`` for every flag the port cannot run yet,
     naming the ROADMAP.md item that brings it."""
-    eval_bf16(args, device)
     if args.world_size > 1 or int(os.environ.get("AVDN_NUM_PROCESSES", "0") or 0) > 1:
         raise NotImplementedError(
             "multi-process and data-parallel runs are ROADMAP.md queue 1 item 14")
@@ -70,9 +69,10 @@ def check_supported(args: Args, device: torch.device) -> None:
             f"--family {args.family}: the LSTM family is ROADMAP.md queue 1 item 11")
 
 
-def build_models(args: Args, device: torch.device):
-    """BERT, Darknet and the ET trunk at the flag widths, fp32, on ``device``
-    (in eval mode)."""
+def build_models(args: Args, device: torch.device, bf16: bool = False):
+    """BERT, Darknet and the ET trunk at the flag widths on ``device`` (in
+    eval mode): float32 parameters, computing in bf16 with ``bf16``."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
     if args.demb == 768 and args.bert_layers == 12:
         bert_cfg = BertConfig()
     else:
@@ -85,8 +85,8 @@ def build_models(args: Args, device: torch.device):
     else:
         dk_cfg = DarknetConfig.default(img_size=224)
     vln = HAATransformer(ETConfig(demb=args.demb, encoder_heads=args.encoder_heads,
-                                  encoder_layers=args.encoder_layers))
-    models = (BertLanguageEncoder(bert_cfg), Darknet(dk_cfg), vln)
+                                  encoder_layers=args.encoder_layers), dtype=dtype)
+    models = (BertLanguageEncoder(bert_cfg, dtype), Darknet(dk_cfg, dtype=dtype), vln)
     return tuple(m.to(device).eval() for m in models)
 
 
@@ -119,9 +119,45 @@ def init_state(models, generator: torch.Generator) -> None:
                 p.zero_()
 
 
+def _auto_render_crop(anno_dir: str, splits) -> int:
+    """The two-pass crop for a dataset: ``auto_render_crop`` of the finest
+    ``lat_ratio`` in the annotations of ``splits`` (a split without a file
+    is skipped; 512 when none has one)."""
+    lats = []
+    for split in splits:
+        path = os.path.join(anno_dir, f"{split}_data.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                lats.extend(it["lat_ratio"] for it in json.load(f))
+    return auto_render_crop(min(lats)) if lats else 512
+
+
+def eval_render_twopass(args: Args) -> bool:
+    """Eval and serving render with the two-pass warp unless
+    ``--render_twopass False`` (the JAX package's shipped default)."""
+    return args.render_twopass is not False
+
+
+def resolve_render_crop(args: Args) -> Args:
+    """``--render_crop 0`` → sized from the annotations of EVERY split the
+    run touches, train included as in the JAX package (a val map with a
+    finer ``lat_ratio`` needs a larger window than any train map); 512 when
+    no two-pass render runs."""
+    if args.render_crop == 0:
+        if eval_render_twopass(args):
+            splits = ["train", "val_seen", "val_unseen"] + (
+                ["test_unseen"] if args.submit else [])
+            args.render_crop = _auto_render_crop(args.train_anno_dir, splits)
+            print(f"render_crop auto-derived: {args.render_crop}px", file=sys.stderr)
+        else:
+            args.render_crop = 512
+    return args
+
+
 def eval_config_from_args(args: Args) -> TrainConfig:
     """The eval/serving config: the render mode is two-pass unless
-    ``--render_twopass False``, as in the JAX package's eval default."""
+    ``--render_twopass False``, as in the JAX package's eval default (call
+    ``resolve_render_crop`` first for an auto-sized crop)."""
     return TrainConfig(
         family=args.family,
         nss_r=args.nss_r,
@@ -130,13 +166,32 @@ def eval_config_from_args(args: Args) -> TrainConfig:
         language_only=args.language_only,
         no_direction=args.no_direction,
         render_subsample=args.render_subsample,
-        render_twopass=args.render_twopass is not False,
+        render_twopass=eval_render_twopass(args),
+        render_crop=args.render_crop,
+        render_bf16=args.render_bf16,
         fold_bn_eval=args.fold_bn_eval,
         fused_teacher=args.fused_teacher,
         fast_eval_trunk=args.fast_eval_trunk,
         et_decode_trunk=args.et_decode_trunk,
         quant=args.quant,
     )
+
+
+def describe_eval_mode(cfg: TrainConfig, models) -> str:
+    """One line naming the towers' dtype, the vision tower's form and the
+    render mode an eval config runs."""
+    if cfg.render_twopass:
+        render = f"two-pass render, crop {cfg.render_crop} px"
+        if cfg.render_bf16:
+            render += ", bf16 weights on the card"
+    else:
+        render = "exact render" + (f", subsample {cfg.render_subsample}"
+                                   if cfg.render_subsample > 1 else "")
+    tower = ("int8" if cfg.quant == "int8" else
+             "BN-folded" if cfg.fold_bn_eval else "unfolded")
+    trunk = "KV-decode trunk" if cfg.et_decode_trunk else "re-encode trunk"
+    return (f"towers {str(models[0].dtype).replace('torch.', '')}, {tower} "
+            f"Darknet, {trunk}, {render}")
 
 
 def batcher_config(args: Args) -> BatcherConfig:
@@ -354,8 +409,9 @@ def valid(args: Args, device=None):
     set_random_seed(args.seed)
     _check_dataset(args, ["val_seen", "val_unseen"])
     use_fp32_numerics()
+    args = resolve_render_crop(args)
     cfg = eval_config_from_args(args)
-    models = build_models(args, device)
+    models = build_models(args, device, bf16=eval_bf16(args, device))
     init_state(models, torch.Generator().manual_seed(args.seed))
     if args.resume_file:
         load_agent_weights(models, load_reference_agent(args.resume_file))
@@ -369,7 +425,7 @@ def valid(args: Args, device=None):
     writer = MetricWriter(args.log_dir, "valid.txt")
     writer.text(f"device: {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
-                   if device.type == "cuda" else ""))
+                   if device.type == "cuda" else "") + "; " + describe_eval_mode(cfg, models))
     with open(os.path.join(args.log_dir, "validation_args.json"), "w") as f:
         json.dump(vars(args), f, indent=4, default=str)
     val_envs = build_dataset(args)

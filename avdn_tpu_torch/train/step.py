@@ -18,6 +18,7 @@ import torch
 
 from avdn_tpu_torch.device import use_fp32_numerics
 from avdn_tpu_torch.models.darknet import Darknet, fold_darknet_params, output_channels
+from avdn_tpu_torch.models.darknet_quant import QuantDarknet, quantize_darknet_params
 from avdn_tpu_torch.rollout.engine import (
     RGB_STD,
     EpisodeBatch,
@@ -40,7 +41,8 @@ class TrainBatch:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The eval-side fields of the JAX ``TrainConfig``: what the eval
-    rollouts read, and the mode flags they reject (``check_rollout_supported``)."""
+    rollouts read (the optimizer, loss-weight and remat fields come with
+    training, ROADMAP.md queue 1 item 10)."""
 
     family: str = "et"
     nss_r: int = 0
@@ -48,13 +50,15 @@ class TrainConfig:
     single_bert_pass: bool = False  # --train_val_on_full mode skips pass 2
     language_only: bool = False
     no_direction: bool = False
-    render_subsample: int = 1
-    render_twopass: bool = False
+    render_subsample: int = 1      # >1: low-res gather + upscale (opt-in)
+    render_twopass: bool = False   # full-res two-pass warp
+    render_crop: int = 512         # two-pass source window, px
+    render_bf16: bool = True       # bf16 two-pass weights (fp32 on the CPU)
     fold_bn_eval: bool = True      # fold BN + input norm into eval conv weights
     fused_teacher: bool = True
     fast_eval_trunk: bool = True
-    et_decode_trunk: bool = False
-    quant: str = "none"
+    et_decode_trunk: bool = False  # incremental eval-loop trunk decode (opt-in)
+    quant: str = "none"            # "none" | "int8" eval/serving tower (opt-in)
 
     def rollout_cfg(self, teacher: bool, **kw) -> RolloutConfig:
         return RolloutConfig(
@@ -63,8 +67,13 @@ class TrainConfig:
             nss_r=self.nss_r,
             language_only=self.language_only,
             no_direction=self.no_direction,
+            render_subsample=self.render_subsample,
+            render_twopass=self.render_twopass,
+            render_crop=self.render_crop,
+            render_bf16=self.render_bf16,
             fused_teacher=self.fused_teacher,
             fast_eval_trunk=self.fast_eval_trunk,
+            et_decode_trunk=self.et_decode_trunk,
             **kw,
         )
 
@@ -100,23 +109,10 @@ def _run_family_rollout(cfg: TrainConfig, roll_cfg: RolloutConfig, models,
 
 
 def check_rollout_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice cannot run."""
+    """Raise ``NotImplementedError`` for what the port cannot run yet."""
     if cfg.family != "et":
         raise NotImplementedError(
             f"--family {cfg.family}: the LSTM family is ROADMAP.md queue 1 item 11")
-    if cfg.render_twopass:
-        raise NotImplementedError(
-            "the two-pass render is ROADMAP.md queue 1 item 9; pass "
-            "--render_twopass False for the exact render")
-    if cfg.render_subsample > 1:
-        raise NotImplementedError(
-            "--render_subsample > 1 is ROADMAP.md queue 1 item 12")
-    if cfg.quant != "none":
-        raise NotImplementedError(
-            f"--quant {cfg.quant}: the int8 tower is ROADMAP.md queue 1 item 12")
-    if cfg.et_decode_trunk:
-        raise NotImplementedError(
-            "--et_decode_trunk is ROADMAP.md queue 1 item 12")
 
 
 def make_eval_rollout(cfg: TrainConfig, bert_model, darknet_model, vln_model,
@@ -134,17 +130,28 @@ def make_eval_rollout(cfg: TrainConfig, bert_model, darknet_model, vln_model,
 
     ``cfg.fold_bn_eval`` (default): the vision tower runs as its folded
     inference variant — eval-mode BatchNorm and the input ``/std`` are folded
-    into the conv weights at each call (``fold_darknet_params``). Every call
-    runs under ``torch.inference_mode`` with the models in eval mode. The
-    rollout runs in fp32: building it sets
+    into the conv weights at each call (``fold_darknet_params``), in the
+    tower's compute dtype. ``cfg.quant == "int8"`` (which needs the fold)
+    runs the folded tower quantized (``models/darknet_quant.py``), its int8
+    weights derived from the folded ones at each call. Every call runs under
+    ``torch.inference_mode`` with the models in eval mode. Whatever the
+    towers' dtype, float32 work stays float32: building the rollout sets
     ``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32`` to False.
     """
     check_rollout_supported(cfg)
+    quant = cfg.quant == "int8"
+    if cfg.quant not in ("none", "int8"):
+        raise ValueError(f"unknown quant mode {cfg.quant!r} (choose 'none' or 'int8')")
+    if quant and not cfg.fold_bn_eval:
+        raise ValueError("--quant int8 requires --fold_bn_eval (the quantizer "
+                         "consumes the bias-carrying folded conv form)")
     use_fp32_numerics()
     if cfg.fold_bn_eval:
         dev = next(darknet_model.parameters()).device
-        folded = Darknet(darknet_model.cfg, folded=True).to(dev).eval()
+        folded = (QuantDarknet(darknet_model.cfg) if quant else
+                  Darknet(darknet_model.cfg, folded=True, dtype=darknet_model.dtype))
+        folded = folded.to(dev).eval()
     roll = cfg.rollout_cfg(teacher, collect_ha_metrics=collect_ha,
                            compute_losses=compute_losses,
                            collect_views=collect_debug,
@@ -158,8 +165,12 @@ def make_eval_rollout(cfg: TrainConfig, bert_model, darknet_model, vln_model,
         bert_out = _encode_language(bert_model, batch, cfg)
         dk = darknet_model
         if cfg.fold_bn_eval:
-            folded.load_state_dict(fold_darknet_params(
-                darknet_model.cfg, darknet_model.state_dict(), input_std=RGB_STD))
+            params = fold_darknet_params(darknet_model.cfg, darknet_model.state_dict(),
+                                         input_std=RGB_STD)
+            if quant:
+                folded.qparams = quantize_darknet_params(darknet_model.cfg, params)
+            else:
+                folded.load_state_dict(params)
             dk = folded
         return _run_family_rollout(cfg, roll, (dk, vln_model), bert_out, batch,
                                    map_bank, generator)

@@ -26,13 +26,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
 5. valid   — the port's validation driver, ``valid()``, at full width on an
              ANDH-format dataset written here (val_seen / val_unseen JSON,
              the maps as .tif files), the random weights through
-             ``--resume_file`` as a reference-format .pt, ``--inference``:
-             its metric records, debug images and launch counts.
-6. parity  — one student rollout at B = 2 on the card and on the CPU (plain
+             ``--resume_file`` as a reference-format .pt, fp32 and the exact
+             render: its metric records and launch counts (no
+             ``--inference``, so no debug images: phase 6 writes them).
+6. defaults — the shipped eval defaults, with no render or dtype flag: the
+             two-pass render with the crop sized from the dataset (1024 px),
+             bf16 towers, the BN-folded tower. Navigator serves 3 requests of
+             8, the student nav eval and the fused HA eval run over the 24
+             items, the opt-in modes (``--render_subsample 2``, ``--quant
+             int8``, ``--et_decode_trunk True``) one batch each, the fp32
+             decode trunk is held against the full re-encode, and
+             ``valid()`` runs as ``--inference True`` with its debug images.
+7. render  — the two-pass render fp32 on the card against the CPU (B = 2),
+             bf16 against fp32 weights (B = 8), and the per-call time of the
+             exact and two-pass renders at B = 8 and N = 80.
+8. parity  — one student rollout at B = 2 on the card and on the CPU (plain
              versions) with the same weights and inputs.
-7. profile — one nav-eval batch and one fused HA-eval batch under
+9. profile — one nav-eval batch and one fused HA-eval batch under
              torch.profiler (device busy time, top kernels) and each layer
-             of a rollout step timed alone.
+             of a rollout step timed alone, for the exact fp32 config and for
+             the defaults (with the int8 tower and the decode step).
+
+To keep the wall near what it was before phases 6–7 came, phase 5 runs
+without debug images and phase 9 times each layer over fewer calls (5
+profiled, 3 × 3 timed).
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -340,13 +357,16 @@ def phase_kernels(card):
     return rec
 
 
-def build_args(out_dir, extra=()):
+def build_args(out_dir, extra=(), defaults=False):
+    """The run's flags: the exact render in fp32 (``--render_twopass False
+    --bf16 False``), or with ``defaults`` no render or dtype flag at all."""
     from avdn_tpu_torch.config import parse_args
 
+    numerics = [] if defaults else ["--render_twopass", "False", "--bf16", "False"]
     return parse_args([
         "--output_dir", out_dir, "--seed", str(SEED),
         "--max_action_len", str(T_STEPS), "--batch_size", str(SERVE_BATCH),
-        "--render_twopass", "False", "--bf16", "False", *extra,
+        *numerics, *extra,
     ])
 
 
@@ -501,24 +521,33 @@ def save_agent(nav, path):
     torch.save(blob, path)
 
 
-def phase_valid(card, nav, maps, device="cuda", extra_args=()):
+VALID_ROOT = os.path.join(ROOT, "build", "chip_smoke_valid")
+
+
+def phase_valid(card, nav, maps, device="cuda", extra_args=(), defaults=False):
     """``valid()`` at full width on the smoke dataset: T saliency launches
-    per nav batch and one per HA batch, the metric keys of the exact-render
-    golden with finite values, and the debug images."""
+    per nav batch and one per HA batch, the metric keys of the golden with
+    finite values. The exact-mode run writes the dataset and ``nav``'s
+    weights as the checkpoint and runs without ``--inference`` (no debug
+    images); the ``defaults`` run (no render or dtype flag) is the CLI's
+    ``--inference True``, debug images included."""
     import torch
 
     from avdn_tpu_torch.ops.saliency import saliency_stats
     from avdn_tpu_torch.train.loop import valid
 
-    root = os.path.join(ROOT, "build", "chip_smoke_valid")
-    t0 = time.perf_counter()
-    write_dataset(os.path.join(root, "data"), maps, make_items())
+    root = VALID_ROOT
     pt = os.path.join(root, "agent.pt")
-    save_agent(nav, pt)
-    log(f"[valid] dataset and checkpoint written in {time.perf_counter() - t0:.3f} s")
-    args = build_args(os.path.join(root, "out"), [
-        "--root_dir", os.path.join(root, "data"), "--inference", "True",
-        "--resume_file", pt, *extra_args])
+    tag = "[defaults]" if defaults else "[valid]"
+    if not defaults:
+        t0 = time.perf_counter()
+        write_dataset(os.path.join(root, "data"), maps, make_items())
+        save_agent(nav, pt)
+        log(f"[valid] dataset and checkpoint written in {time.perf_counter() - t0:.3f} s")
+    args = build_args(os.path.join(root, "out_defaults" if defaults else "out"), [
+        "--root_dir", os.path.join(root, "data"),
+        "--inference", "True" if defaults else "False",
+        "--resume_file", pt, *extra_args], defaults=defaults)
     for name in ("metrics.jsonl", "valid.txt"):
         if os.path.exists(os.path.join(args.log_dir, name)):
             os.remove(os.path.join(args.log_dir, name))
@@ -532,36 +561,252 @@ def phase_valid(card, nav, maps, device="cuda", extra_args=()):
     n_batches = -(-16 // SERVE_BATCH) + -(-8 // SERVE_BATCH)
     want = n_batches * (T_STEPS + 1)
     if torch.device(device).type == "cuda" and launches != want:
-        fail(f"valid: {launches} saliency_stats launches, expected {want} "
+        fail(f"{tag} valid: {launches} saliency_stats launches, expected {want} "
              f"(T = {T_STEPS} per nav batch, 1 per HA batch, {n_batches} batches each)")
 
-    with open(os.path.join(ROOT, "tests", "golden", "eval_metrics_exact.json")) as f:
+    golden_name = "eval_metrics_twopass_bf16.json" if defaults else "eval_metrics_exact.json"
+    with open(os.path.join(ROOT, "tests", "golden", golden_name)) as f:
         golden = set(json.load(f))
     with open(os.path.join(args.log_dir, "metrics.jsonl")) as f:
         got = {k: v for line in f for k, v in json.loads(line).items()
                if k != "step" and not k.startswith("throughput/")}
-    if set(got) != golden or not os.path.exists(os.path.join(args.log_dir, "valid.txt")):
-        fail(f"valid: metric keys differ from the golden's: +{sorted(set(got) - golden)} "
-             f"-{sorted(golden - set(got))}")
+    with open(os.path.join(args.log_dir, "valid.txt")) as f:
+        mode_line = f.readline().strip()
+    if set(got) != golden:
+        fail(f"{tag} valid: metric keys differ from {golden_name}'s: "
+             f"+{sorted(set(got) - golden)} -{sorted(golden - set(got))}")
     bad = [k for k, v in got.items() if not (isinstance(v, float) and v == v
                                               and abs(v) != float("inf"))]
     if bad:
-        fail(f"valid: non-finite metrics {bad}")
-    images = os.listdir(os.path.join(args.pred_dir, "debug_images"))
-    overlays = [n for n in images if "_att" not in n and "_input" not in n]
-    heatmaps = [n for n in images if "_pred_att_" in n]
-    if len(overlays) < N_ITEMS or not heatmaps:
-        fail(f"valid: {len(overlays)} trajectory overlays and {len(heatmaps)} "
-             "saliency heatmaps written")
+        fail(f"{tag} valid: non-finite metrics {bad}")
+    n_images = 0
+    if defaults:
+        images = os.listdir(os.path.join(args.pred_dir, "debug_images"))
+        overlays = [n for n in images if "_att" not in n and "_input" not in n]
+        heatmaps = [n for n in images if "_pred_att_" in n]
+        if len(overlays) < N_ITEMS or not heatmaps:
+            fail(f"{tag} valid: {len(overlays)} trajectory overlays and "
+                 f"{len(heatmaps)} saliency heatmaps written")
+        n_images = len(images)
     t = timers.totals
-    log(f"[valid] valid(): {wall:.3f} s wall; nav eval {t['nav_eval']:.3f} s, HA eval "
-        f"{t['ha_eval']:.3f} s, debug images {t['debug_images']:.3f} s (the heatmaps "
-        "inside the HA eval), map loading "
+    log(f"{tag} valid(): {wall:.3f} s wall; nav eval {t['nav_eval']:.3f} s, HA eval "
+        f"{t['ha_eval']:.3f} s, debug images {t.get('debug_images', 0.0):.3f} s (the "
+        "heatmaps inside the HA eval), map loading "
         f"{t['map_load']:.3f} s summed over decode threads ({timers.counts['map_load']} "
         f"maps, overlapping the evals); saliency_stats launches {launches} "
-        f"(T = {T_STEPS} per nav batch, 1 per HA batch); {len(images)} debug images | {card}")
-    log(f"[valid] metrics {json.dumps(results, sort_keys=True)}")
+        f"(T = {T_STEPS} per nav batch, 1 per HA batch); {n_images} debug images | {card}")
+    log(f"{tag} {mode_line}")
+    log(f"{tag} metrics {json.dumps(results, sort_keys=True)}")
     return launches
+
+
+def _run_paths(paths, chunks, device, tag, card):
+    """Run each ``(name, rollout, launches per batch)`` over the prepared
+    chunks from saliency-kernel count 0: the launches per batch (checked on
+    the card), finite outputs, the walls and the metrics. Returns
+    ``({name: launches}, {name: [outputs]})``."""
+    import numpy as np
+    import torch
+
+    from avdn_tpu_torch.metrics.nav import assemble_trajectories, eval_metrics
+    from avdn_tpu_torch.ops.saliency import saliency_stats
+
+    on_card = torch.device(device).type == "cuda"
+    launches, outs = {}, {}
+    for name, fn, per_batch in paths:
+        saliency_stats.launches = 0
+        t0 = time.perf_counter()
+        preds, walls, outs[name] = {}, [], []
+        for bank, batch, meta in chunks:
+            tb = time.perf_counter()
+            before = saliency_stats.launches
+            out = fn(bank, batch, torch.Generator(device).manual_seed(SEED)).cpu()
+            walls.append(time.perf_counter() - tb)
+            got = saliency_stats.launches - before
+            if on_card and got != per_batch:
+                fail(f"{tag} {name}: {got} saliency_stats launches in a batch, "
+                     f"expected {per_batch}")
+            if not all(np.isfinite(getattr(out, f).numpy()).all()
+                       for f in ("actions_wp", "corners", "loss")):
+                fail(f"{tag} {name}: non-finite outputs")
+            outs[name].append(out)
+            preds.update(assemble_trajectories(out, meta))
+        wall = time.perf_counter() - t0
+        launches[name] = saliency_stats.launches
+        metrics, _ = eval_metrics(preds, human_att_eval="ha_eval" in name)
+        log(f"{tag} {name}: {len(preds)} episodes in {wall:.3f} s (per batch "
+            f"{', '.join(f'{w:.3f}' for w in walls)} s), saliency_stats launches "
+            f"{launches[name]} ({per_batch} per batch of {SERVE_BATCH}) "
+            f"{json.dumps(metrics, sort_keys=True)} | {card}")
+    return launches, outs
+
+
+def _max_diff(a, b, fields=("actions_wp", "actions_alt", "pred_progress")):
+    return max((getattr(a, f) - getattr(b, f)).abs().max().item() for f in fields)
+
+
+def phase_defaults(card, nav_exact, maps, device="cuda", extra_args=()):
+    """The shipped eval defaults, chosen as a user gets them: no render or
+    dtype flag, the crop sized from the phase-5 dataset's annotations. Checks
+    that they resolve to the two-pass render with the auto crop (1024 px at
+    5e-6 deg/px), bf16 towers (fp32 on the CPU) and the BN fold; serves 3
+    requests of 8 (no saliency launch); runs the student nav eval (T
+    launches per batch) and the time-fused HA eval (1 per batch) over the 24
+    items; runs the opt-in modes (``--render_subsample 2``, ``--quant int8``,
+    ``--et_decode_trunk True``) on one batch each; holds the fp32 decode
+    trunk against the full re-encode (fp32 towers of ``nav_exact``: stops
+    identical, actions within 1e-4). Returns the Navigator, the prepared
+    chunks and the launch counts by path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avdn_tpu_torch.ops.saliency import saliency_stats
+    from avdn_tpu_torch.serve import Navigator
+    from avdn_tpu_torch.sim.warp2pass import auto_render_crop
+    from avdn_tpu_torch.train.step import make_eval_rollout
+
+    on_card = torch.device(device).type == "cuda"
+    maps_by_name = {f"smoke_map_{k}": maps[k] for k in range(N_MAPS)}
+    items = make_items()
+    args = build_args(os.path.join(ROOT, "build", "chip_smoke_defaults"), [
+        "--root_dir", os.path.join(VALID_ROOT, "data"),
+        "--resume_file", os.path.join(VALID_ROOT, "agent.pt"), *extra_args],
+        defaults=True)
+    t0 = time.perf_counter()
+    nav = Navigator(args, serve_batch=SERVE_BATCH, device=device,
+                    map_loader=lambda it: maps_by_name[it["map_name"]])
+    sync(device)
+    cfg = nav.cfg
+    dtype = str(torch.bfloat16 if on_card else torch.float32)
+    got = dict(render_twopass=cfg.render_twopass, render_crop=cfg.render_crop,
+               render_bf16=cfg.render_bf16, fold_bn_eval=cfg.fold_bn_eval,
+               quant=cfg.quant, et_decode_trunk=cfg.et_decode_trunk,
+               dtypes=[str(m.dtype) for m in (nav.bert, nav.darknet, nav.vln)])
+    want = dict(render_twopass=True, render_crop=auto_render_crop(LAT_RATIO),
+                render_bf16=True, fold_bn_eval=True, quant="none",
+                et_decode_trunk=False, dtypes=[dtype] * 3)
+    if got != want:
+        fail(f"[defaults] the unset flags resolved to {got}, expected {want}")
+    log(f"[defaults] Navigator built in {time.perf_counter() - t0:.3f} s with no render "
+        f"or dtype flag: {json.dumps(got)}")
+
+    # ---- serving: 3 requests of 8 items; no saliency statistics ----
+    saliency_stats.launches = 0
+    t0 = time.perf_counter()
+    preds = {}
+    for lo in range(0, N_ITEMS, SERVE_BATCH):
+        preds.update(nav.navigate(items[lo: lo + SERVE_BATCH]))
+    serve_s = time.perf_counter() - t0
+    if len(preds) != N_ITEMS or saliency_stats.launches != 0:
+        fail(f"[defaults] serving: {len(preds)} predictions, "
+             f"{saliency_stats.launches} saliency launches (expected {N_ITEMS}, 0)")
+    for rec in preds.values():
+        corners = np.stack([np.asarray(c) for c, _ in rec["path_corners"]])
+        if corners.shape[1:] != (4, 2) or not np.isfinite(corners).all():
+            fail("[defaults] serving: non-finite or misshapen path corners")
+    log(f"[defaults] serving: {len(preds)} predictions in {serve_s:.3f} s "
+        f"(3 requests x {SERVE_BATCH}), saliency_stats launches 0 | {card}")
+
+    # ---- the nav eval and the fused HA eval over the 24 items ----
+    norm = [Navigator._normalize_item(it) for it in items]
+    chunks = [nav.prepare(norm[lo: lo + SERVE_BATCH])
+              for lo in range(0, N_ITEMS, SERVE_BATCH)]
+    sync(device)
+    student = make_eval_rollout(cfg, nav.bert, nav.darknet, nav.vln, teacher=False,
+                                compute_losses=True)
+    launches, outs = _run_paths((
+        ("defaults_nav_eval", student, T_STEPS),
+        ("defaults_ha_eval_fused", make_eval_rollout(
+            cfg, nav.bert, nav.darknet, nav.vln, teacher=True, collect_ha=True), 1),
+    ), chunks, device, "[defaults]", card)
+
+    # ---- the opt-in modes, one nav-eval batch each ----
+    base = outs["defaults_nav_eval"][0]
+    for name, over in (("subsample2", dict(render_twopass=False, render_subsample=2)),
+                       ("int8", dict(quant="int8")),
+                       ("decode_trunk", dict(et_decode_trunk=True))):
+        fn = make_eval_rollout(dataclasses.replace(cfg, **over), nav.bert, nav.darknet,
+                               nav.vln, teacher=False, compute_losses=True)
+        _, got = _run_paths(((f"mode_{name}", fn, T_STEPS),), chunks[:1], device,
+                            "[defaults]", card)
+        out = got[f"mode_{name}"][0]
+        log(f"[defaults] mode {name} ({json.dumps(over)}): one batch, max action diff "
+            f"{_max_diff(out, base)} from the defaults run, stop steps equal "
+            f"{torch.equal(out.alive_post, base.alive_post)}")
+
+    # ---- fp32 decode trunk against the full re-encode (exact-mode towers) ----
+    bank, batch, _ = nav_exact.prepare(norm[:SERVE_BATCH])
+    res = {}
+    for decode in (False, True):
+        fn = make_eval_rollout(dataclasses.replace(nav_exact.cfg, et_decode_trunk=decode),
+                               nav_exact.bert, nav_exact.darknet, nav_exact.vln,
+                               teacher=False, compute_losses=True)
+        res[decode] = fn(bank, batch, torch.Generator(device).manual_seed(SEED)).cpu()
+    err = _max_diff(res[True], res[False])
+    if not torch.equal(res[True].alive_post, res[False].alive_post) or not err <= 1e-4:
+        fail(f"[defaults] fp32 decode trunk vs full re-encode: stops equal "
+             f"{torch.equal(res[True].alive_post, res[False].alive_post)}, actions {err}")
+    log(f"[defaults] fp32 decode trunk vs full re-encode at B={SERVE_BATCH}, "
+        f"T={T_STEPS}: stop steps identical, max action diff {err}")
+    return nav, chunks, launches
+
+
+def phase_render(card, nav, chunks, device="cuda"):
+    """The two-pass render against its references: fp32 on the card vs the
+    CPU at B = 2 (views within 1e-3 on the 0–255 scale, saliency equal);
+    the bf16 weights vs fp32 on the card at B = 8 (mean < 1.0, p99 < 6.0,
+    the bounds of the JAX package's tests); then the per-call time of the
+    exact gather and of the two-pass render (bf16 and fp32 weights) at
+    B = 8 and at N = T·B = 80, wall and kernels."""
+    import torch
+
+    from avdn_tpu_torch.rollout.engine import _corners_to_img
+    from avdn_tpu_torch.sim.render import render_batch
+    from avdn_tpu_torch.sim.warp2pass import render_batch_twopass
+
+    crop = nav.cfg.render_crop
+    bank, batch, _ = chunks[0]
+    ep = batch.episode
+    quad = _corners_to_img(ep.start_corners, ep.extent, ep.lat_ratio)
+    inputs = (ep.map_idx, quad, ep.circles, ep.n_circles)
+
+    def twopass(n, bf16, dev=device, b=bank):
+        return render_batch_twopass(b, *(t[:n].to(dev) for t in inputs),
+                                    crop_hw=crop, bf16=bf16)
+
+    card_v, card_s = twopass(2, False)
+    cpu_v, cpu_s = twopass(2, False, "cpu", bank.cpu())
+    err = (card_v.cpu() - cpu_v).abs().max().item()
+    if not err <= 1e-3 or not torch.equal(card_s.cpu(), cpu_s):
+        fail(f"[render] two-pass fp32 card vs CPU: views {err}, saliency equal "
+             f"{torch.equal(card_s.cpu(), cpu_s)}")
+    log(f"[render] two-pass fp32 (crop {crop}) card vs CPU at B=2: max view diff {err} "
+        "(0-255), saliency identical")
+    if torch.device(device).type != "cuda":
+        return
+    d = (twopass(SERVE_BATCH, True)[0] - twopass(SERVE_BATCH, False)[0]).abs().flatten()
+    mean, p99 = d.mean().item(), torch.quantile(d[::7].float(), 0.99).item()
+    if not (mean < 1.0 and p99 < 6.0):
+        fail(f"[render] two-pass bf16 vs fp32: mean {mean}, p99 {p99} (bounds 1.0, 6.0)")
+    log(f"[render] two-pass bf16 vs fp32 weights at B={SERVE_BATCH}: mean |diff| {mean}, "
+        f"p99 {p99}, max {d.max().item()} (0-255; bounds 1.0, 6.0)")
+
+    for n in (SERVE_BATCH, T_STEPS * SERVE_BATCH):
+        tiled = [t.repeat(-(-n // SERVE_BATCH), *([1] * (t.ndim - 1)))[:n] for t in inputs]
+        for name, fn in (
+                ("exact", lambda: render_batch(bank, *tiled)),
+                ("twopass_bf16", lambda: render_batch_twopass(bank, *tiled, crop_hw=crop)),
+                ("twopass_fp32", lambda: render_batch_twopass(bank, *tiled, crop_hw=crop,
+                                                              bf16=False))):
+            ms = cuda_time_ms(fn, n=1, trials=3)
+            got = device_time_ms(fn, n=2)
+            kernels = ("not measured (the profiler lost kernel records)" if got is None
+                       else f"{got[0]:.4f} ms in {got[1]:g} launches")
+            log(f"[render] {name} N={n}: {ms:.4f} ms per call, kernels {kernels} "
+                f"(crop {crop}) | {card}")
+            torch.cuda.empty_cache()
 
 
 def phase_parity(nav, items):
@@ -591,24 +836,16 @@ def phase_parity(nav, items):
         f"max action diff {err} (CPU side {time.perf_counter() - t0:.3f} s)")
 
 
-def phase_profile(nav, items, card):
-    """Where one nav-eval batch and one fused HA-eval batch (B = 8, T = 10)
-    spend their time: the device busy share from torch.profiler, the top
-    kernels by device time, and each layer of a rollout step timed alone
-    with CUDA events."""
+def profile_rollouts(nav, prepared, card, tag):
+    """One nav-eval batch and one fused HA-eval batch of ``nav``'s config:
+    the unprofiled wall, the device busy time from torch.profiler, the
+    device idle share and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from avdn_tpu_torch.models.darknet import Darknet, fold_darknet_params
-    from avdn_tpu_torch.ops.saliency import saliency_reductions, saliency_reductions_plain
-    from avdn_tpu_torch.rollout.engine import (RGB_MEAN, RGB_STD, _corners_to_img,
-                                               dynamics_update)
-    from avdn_tpu_torch.sim.oracle import teacher_action_batch
-    from avdn_tpu_torch.sim.render import render_batch
-    from avdn_tpu_torch.train.step import _encode_language, make_eval_rollout
+    from avdn_tpu_torch.train.step import make_eval_rollout
 
-    bank, batch, _ = nav.prepare(items[:SERVE_BATCH])
-    ep = batch.episode
+    bank, batch = prepared
     gen = torch.Generator("cuda").manual_seed(SEED)
     for name, fn in (
             ("nav_eval", make_eval_rollout(nav.cfg, nav.bert, nav.darknet, nav.vln,
@@ -621,20 +858,108 @@ def phase_profile(nav, items, card):
         fn(bank, batch, gen)
         sync("cuda")
         wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # kernels only: the host ops would add some 40k events per profiled run
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn(bank, batch, gen)
             sync("cuda")
 
         kernels = kernel_events(prof)
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        log(f"[profile] {name} B={SERVE_BATCH} T={T_STEPS}: wall {wall_ms:.3f} ms "
+        log(f"{tag} {name} B={SERVE_BATCH} T={T_STEPS}: wall {wall_ms:.3f} ms "
             f"(unprofiled), kernels {busy_ms:.3f} ms in "
             f"{sum(e.count for e in kernels)} launches (profiled run), device idle "
             f"{1 - busy_ms / wall_ms:.3f} of the unprofiled wall | {card}")
         for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                         reverse=True)[:10]:
-            log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+            log(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
                 f"{e.key[:90]}")
+
+
+def time_layers(layers, card, tag, B):
+    """Each layer of ``{name: fn}`` timed alone: CUDA events per call (the
+    median of 3 runs of 3 calls) and the kernels' device time from
+    torch.profiler (5 calls)."""
+    for name, fn in layers.items():
+        # the fused kernel is one launch per call; other layers' counts
+        # are whatever the profiler records
+        one = 1 if name == "saliency_reductions" else None
+        got = device_time_ms(fn, n=5, launches=one)
+        kernels = ("not measured (the profiler lost kernel records)" if got is None
+                   else f"{got[0]:.4f} ms in {got[1]:g} launches per call")
+        log(f"{tag} layer {name}: {cuda_time_ms(fn, n=3, trials=3):.4f} ms "
+            f"per call, kernels {kernels}, at B={B} | {card}")
+
+
+def phase_profile_defaults(nav, chunks, card):
+    """The defaults' nav-eval and fused HA-eval batches profiled, and the
+    layers the eval modes add timed alone at B = 8: the bf16 towers (BERT
+    twice, the folded Darknet, the trunk over the full history), the int8
+    Darknet, one step of the decode trunk and the bf16 two-pass render."""
+    import torch
+
+    from avdn_tpu_torch.models import et_fast
+    from avdn_tpu_torch.models.darknet import Darknet, fold_darknet_params
+    from avdn_tpu_torch.models.darknet_quant import QuantDarknet, quantize_darknet_params
+    from avdn_tpu_torch.rollout.engine import RGB_MEAN, RGB_STD, _corners_to_img
+    from avdn_tpu_torch.sim.warp2pass import render_batch_twopass
+    from avdn_tpu_torch.train.step import _encode_language
+
+    bank, batch, _ = chunks[0]
+    profile_rollouts(nav, (bank, batch), card, "[defaults-profile]")
+    ep = batch.episode
+    B, T = SERVE_BATCH, T_STEPS
+    with torch.inference_mode():
+        params = fold_darknet_params(nav.darknet.cfg, nav.darknet.state_dict(),
+                                     input_std=RGB_STD)
+        folded = Darknet(nav.darknet.cfg, folded=True, dtype=nav.darknet.dtype)
+        folded = folded.cuda().eval()
+        folded.load_state_dict(params)
+        quant = QuantDarknet(nav.darknet.cfg)
+        quant.qparams = quantize_darknet_params(nav.darknet.cfg, params)
+        lang_feat, lang_cls = _encode_language(nav.bert, batch, nav.cfg)
+        quad = _corners_to_img(ep.start_corners, ep.extent, ep.lat_ratio)
+        views, _ = render_batch_twopass(bank, ep.map_idx, quad, ep.circles,
+                                        ep.n_circles, crop_hw=nav.cfg.render_crop)
+        x = views - torch.tensor(RGB_MEAN, device="cuda")
+        feats = folded(x)
+        frames = feats[:, None].expand(B, T, *feats.shape[1:]).float().contiguous()
+        dirs = torch.zeros((B, T, 2), device="cuda")
+        lengths = torch.full((B,), T, dtype=torch.long, device="cuda")
+        lang_kv = et_fast.make_lang_cache(nav.vln, lang_feat, dtype=nav.vln.dtype)
+        cache = et_fast.init_cache(nav.vln.cfg, B, T, dtype=nav.vln.dtype, device="cuda")
+        time_layers({
+            "bert_2_passes_bf16": lambda: _encode_language(nav.bert, batch, nav.cfg),
+            "render_twopass_bf16": lambda: render_batch_twopass(
+                bank, ep.map_idx, quad, ep.circles, ep.n_circles,
+                crop_hw=nav.cfg.render_crop),
+            "darknet53_folded_bf16": lambda: folded(x),
+            "darknet53_int8": lambda: quant(x),
+            "et_trunk_full_history_bf16": lambda: nav.vln(lang_feat, lang_cls, frames,
+                                                          dirs, lengths),
+            "et_decode_step_bf16": lambda: et_fast.decode_step(
+                nav.vln, lang_kv, cache, lang_cls, feats, dirs[:, 0], T - 1, lengths,
+                dtype=nav.vln.dtype),
+        }, card, "[defaults-profile]", B)
+
+
+def phase_profile(nav, items, card):
+    """Where one nav-eval batch and one fused HA-eval batch (B = 8, T = 10)
+    spend their time: the device busy share from torch.profiler, the top
+    kernels by device time, and each layer of a rollout step timed alone
+    with CUDA events."""
+    import torch
+
+    from avdn_tpu_torch.models.darknet import Darknet, fold_darknet_params
+    from avdn_tpu_torch.ops.saliency import saliency_reductions, saliency_reductions_plain
+    from avdn_tpu_torch.rollout.engine import (RGB_MEAN, RGB_STD, _corners_to_img,
+                                               dynamics_update)
+    from avdn_tpu_torch.sim.oracle import teacher_action_batch
+    from avdn_tpu_torch.sim.render import render_batch
+    from avdn_tpu_torch.train.step import _encode_language
+
+    bank, batch, _ = nav.prepare(items[:SERVE_BATCH])
+    ep = batch.episode
+    profile_rollouts(nav, (bank, batch), card, "[profile]")
 
     B, T = SERVE_BATCH, T_STEPS
     with torch.inference_mode():
@@ -666,15 +991,7 @@ def phase_profile(nav, items, card):
                 ep.start_corners, ep.start_dir, action[:, :2], action[:, 2].clamp(0, 1),
                 action[:, 3], 0.5, 0, T, ep.extent),
         }
-        for name, fn in layers.items():
-            # the fused kernel is one launch per call; other layers' counts
-            # are whatever the profiler records
-            one = 1 if name == "saliency_reductions" else None
-            got = device_time_ms(fn, n=20, launches=one)
-            kernels = ("not measured (the profiler lost kernel records)" if got is None
-                       else f"{got[0]:.4f} ms in {got[1]:g} launches per call")
-            log(f"[profile] layer {name}: {cuda_time_ms(fn, n=5, trials=5):.4f} ms "
-                f"per call, kernels {kernels}, at B={B} | {card}")
+        time_layers(layers, card, "[profile]", B)
 
 
 def main() -> None:
@@ -685,13 +1002,36 @@ def main() -> None:
         import avdn_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the repository root")
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def done(name):
+        now = time.perf_counter()
+        log(f"[time] {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     card = phase_device()
     phase_build()
+    done("device + build")
     krec = phase_kernels(card)
+    done("kernels")
     nav, items, maps, launches = phase_slice(card)
+    done("slice")
     launches["valid"] = phase_valid(card, nav, maps)
+    done("valid")
+    nav_def, chunks, got = phase_defaults(card, nav, maps)
+    launches.update(got)
+    launches["defaults_valid"] = phase_valid(card, nav, maps, defaults=True)
+    done("defaults")
+    phase_render(card, nav_def, chunks)
+    done("render")
     phase_parity(nav, items)
+    done("parity")
     phase_profile(nav, items, card)
+    done("profile, exact")
+    phase_profile_defaults(nav_def, chunks, card)
+    done("profile, defaults")
+    log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
 
     import torch
 

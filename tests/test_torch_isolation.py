@@ -5,7 +5,9 @@
   package nor ``chip_smoke.py`` names one in an import.
 * Without a card, an entry point given no ``device`` raises instead of
   running on the CPU, and ``chip_smoke.py`` exits non-zero without a result.
-* Flags this slice cannot run raise ``NotImplementedError``.
+* Every eval mode of the JAX package is accepted (the shipped defaults and
+  the opt-in modes); flags the port cannot run yet (the LSTM family,
+  multi-process runs) raise ``NotImplementedError``.
 """
 
 import os
@@ -98,31 +100,66 @@ def test_chip_smoke_fails_without_card_or_package(tmp_path):
 
 
 UNSUPPORTED = {
-    "bf16": dict(bf16=True),
-    "bf16_unset_on_card": dict(bf16=None),
-    "twopass_unset": dict(render_twopass=None),
-    "twopass": dict(render_twopass=True),
-    "subsample": dict(render_subsample=2),
-    "int8": dict(quant="int8"),
-    "decode_trunk": dict(et_decode_trunk=True),
     "lstm": dict(family="lstm"),
     "multi_process": dict(world_size=2),
 }
 
+# case: (flags, device, what the eval config / dtype rule must then say)
+SUPPORTED = {
+    "bf16": (dict(bf16=True), "cpu", "bf16"),
+    "bf16_unset_on_card": (dict(bf16=None), "cuda", "bf16"),
+    "twopass_unset": (dict(render_twopass=None), "cpu", ("render_twopass", True)),
+    "twopass": (dict(render_twopass=True), "cpu", ("render_twopass", True)),
+    "subsample": (dict(render_subsample=2), "cpu", ("render_subsample", 2)),
+    "int8": (dict(quant="int8"), "cpu", ("quant", "int8")),
+    "decode_trunk": (dict(et_decode_trunk=True), "cpu", ("et_decode_trunk", True)),
+}
+
+
+def _mode_args(tmp_path, flags):
+    from avdn_tpu_torch.config import Args, postprocess_args
+
+    fields = dict(output_dir=str(tmp_path), render_twopass=False, bf16=False)
+    fields.update(flags)
+    return postprocess_args(Args(**fields))
+
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unsupported_flags_raise(case, tmp_path):
-    from avdn_tpu_torch.config import Args, postprocess_args
     from avdn_tpu_torch.train.loop import check_supported, eval_config_from_args
     from avdn_tpu_torch.train.step import check_rollout_supported
 
-    fields = dict(output_dir=str(tmp_path), render_twopass=False, bf16=False)
-    fields.update(UNSUPPORTED[case])
-    args = postprocess_args(Args(**fields))
-    device = torch.device("cuda" if case == "bf16_unset_on_card" else "cpu")
+    args = _mode_args(tmp_path, UNSUPPORTED[case])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        check_supported(args, device)
+        check_supported(args, torch.device("cpu"))
         check_rollout_supported(eval_config_from_args(args))
+
+
+@pytest.mark.parametrize("case", sorted(SUPPORTED))
+def test_eval_mode_flags_supported(case, tmp_path):
+    """Each eval mode's flags pass both checks and select the mode: bf16
+    towers where requested or (unset) on the card, the two-pass render
+    unless ``--render_twopass False``, the opt-in modes in the config (and
+    in the rollout config where the rollout reads them; the int8 tower is
+    chosen when the rollout is built)."""
+    from avdn_tpu_torch.train.loop import (check_supported, eval_bf16,
+                                           eval_config_from_args)
+    from avdn_tpu_torch.train.step import check_rollout_supported
+
+    flags, device, want = SUPPORTED[case]
+    args = _mode_args(tmp_path, flags)
+    device = torch.device(device)
+    check_supported(args, device)
+    cfg = eval_config_from_args(args)
+    check_rollout_supported(cfg)
+    if want == "bf16":
+        assert eval_bf16(args, device)
+    else:
+        assert not eval_bf16(args, device)
+        field, value = want
+        assert getattr(cfg, field) == value
+        roll = cfg.rollout_cfg(teacher=False)
+        assert getattr(roll, field, value) == value
 
 
 def test_fused_teacher_rollout_raises(tmp_path):
