@@ -1,8 +1,9 @@
 """Unified CLI entry point (torch counterpart of ``avdn_tpu/cli/main.py``,
 mirroring src/xview_et/main.py:290-314).
 
-``--inference True`` runs the validation driver (``train.loop.valid``) on
-the card; training is ROADMAP.md queue 1 item 10 and raises.
+Without ``--inference`` it runs the train driver (``train.loop.train``);
+``--inference True`` runs the validation driver (``train.loop.valid``). Both
+run on the card unless the caller passes ``device``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ def main(argv=None, family: str = "et", device=None):
     """Parse ``argv`` and run it. ``device`` (default: the card) is where
     the driver runs; the tests pass ``"cpu"``."""
     from avdn_tpu_torch.config import parse_args
-    from avdn_tpu_torch.train.loop import valid
+    from avdn_tpu_torch.train.loop import train, valid
 
     args = parse_args(argv, family=family)
     if args.vision_only:
@@ -22,9 +23,7 @@ def main(argv=None, family: str = "et", device=None):
     if args.language_only:
         print("!!! Language only")
     if not args.inference:
-        raise NotImplementedError(
-            "training is ROADMAP.md queue 1 item 10; pass --inference True to "
-            "validate a checkpoint")
+        return train(args, device=device)
     return valid(args, device=device)
 
 

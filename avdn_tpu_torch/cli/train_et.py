@@ -1,5 +1,6 @@
 """HAA-Transformer entry point (the reference's ``xview_et/main.py``):
 
+    python -m avdn_tpu_torch.cli.train_et --root_dir <dataset> --output_dir <run>
     python -m avdn_tpu_torch.cli.train_et --inference True \
         --render_twopass False --bf16 False --resume_file agent.pt ...
 """

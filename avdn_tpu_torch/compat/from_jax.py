@@ -8,6 +8,11 @@ state dicts that the port's modules load with ``strict=True``.
 :func:`load_reference_agent` reads the ``.pt`` agent checkpoint that
 ``export_reference_agent`` and ``tools/export_torch_ckpt.py`` write
 (``{lang_model, vision_model, vln_model}`` each with a ``state_dict``).
+:func:`train_state_entries` carries a whole JAX ``TrainState`` across:
+parameters, BatchNorm statistics, optax's Adam moments and count, and the
+step, as the entries of the port's train checkpoint
+(``train/checkpoints.py``; :func:`load_train_state` loads them into a port
+train state).
 """
 
 from __future__ import annotations
@@ -195,3 +200,63 @@ def load_agent_weights(models, state_dicts: Dict[str, Dict[str, Any]]) -> None:
     for model, key in zip(models, ("lang_model", "vision_model", "vln_model")):
         model.load_state_dict({k: torch.as_tensor(np.array(v))
                                for k, v in state_dicts[key].items()}, strict=True)
+
+
+# ---------------------------------------------------------- train state ----
+
+
+def _adam_state(opt_state):
+    """The Adam state (``count``, ``mu``, ``nu``) inside an optax chain's
+    state tuple (found by its fields: no optax import)."""
+    stack = [opt_state]
+    while stack:
+        st = stack.pop()
+        if all(hasattr(st, f) for f in ("count", "mu", "nu")):
+            return st
+        if isinstance(st, (tuple, list)):
+            stack.extend(st)
+    raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+
+
+def train_state_entries(state, block_dicts, bert_layers: int = 12,
+                        et_layers: int = 2) -> Dict[str, Any]:
+    """A JAX ``TrainState`` (numpy leaves) → ``{"step", "lang_model",
+    "vision_model", "vln_model"}``, each entry ``{"state_dict",
+    "optimizer": {"count", "mu", "nu"}}`` in the port's names. The moments
+    of a weight are laid out as the weight (a Dense kernel transposed, a
+    conv kernel to OIHW)."""
+    stats = state.batch_stats
+    groups = {
+        "lang_model": (lambda t: bert_state_dict({"params": t}, bert_layers),
+                       state.bert_params, state.opt_bert),
+        "vision_model": (lambda t: darknet_state_dict(
+            {"params": t, "batch_stats": stats}, block_dicts),
+                         state.darknet_params, state.opt_darknet),
+        "vln_model": (lambda t: et_state_dict({"params": t}, et_layers),
+                      state.vln_params, state.opt_vln),
+    }
+    out: Dict[str, Any] = {"step": int(np.asarray(state.step))}
+    buffers = ("running_mean", "running_var", "num_batches_tracked")
+    for key, (convert, params, opt_state) in groups.items():
+        adam = _adam_state(opt_state)
+        moments = [{k: v for k, v in convert(m).items() if not k.endswith(buffers)}
+                   for m in (adam.mu, adam.nu)]
+        out[key] = {"state_dict": convert(params), "optimizer": {
+            "count": int(np.asarray(adam.count)), "mu": moments[0], "nu": moments[1]}}
+    return out
+
+
+def load_train_state(train_state, entries: Dict[str, Any]) -> None:
+    """Load :func:`train_state_entries` into a port ``TrainState`` in place:
+    the modules strictly, the optimizers' moments and counts by parameter
+    name, and the step."""
+    for key, model, opt in zip(("lang_model", "vision_model", "vln_model"),
+                               train_state.models(), train_state.optimizers()):
+        e = entries[key]
+        model.load_state_dict({k: torch.as_tensor(np.array(v))
+                               for k, v in e["state_dict"].items()}, strict=True)
+        o = e["optimizer"]
+        opt.load_state_dict({"count": o["count"],
+                             **{m: {k: torch.as_tensor(np.array(v)) for k, v in o[m].items()}
+                                for m in ("mu", "nu")}})
+    train_state.step = entries["step"]

@@ -9,7 +9,10 @@ HF/reference parameter names (``bert.embeddings.*``,
 
 Returns the reference's triple: token features (B, L, 768), the 49-d head
 output (queries the visual spatial attention), and the pooler vector, in the
-compute ``dtype`` (flax's rules, ``models/layers.py``).
+compute ``dtype`` (flax's rules, ``models/layers.py``). In train mode
+dropout runs at the JAX module's sites (embeddings, attention probabilities,
+both residual branches, the head), its masks drawn from the ``generator``
+passed to ``forward``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,15 @@ import dataclasses
 import torch
 from torch import nn
 
-from avdn_tpu_torch.models.layers import Dense, Embedding, LayerNorm, MLPHead, gelu, inv_sqrt
+from avdn_tpu_torch.models.layers import (
+    Dense,
+    Dropout,
+    Embedding,
+    LayerNorm,
+    MLPHead,
+    gelu,
+    inv_sqrt,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,8 +42,11 @@ class BertConfig:
     intermediate_size: int = 3072
     max_position: int = 512
     type_vocab_size: int = 2
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-12
     head_dims: tuple = (64, 49)  # the CustomBERTModel extra head
+    head_dropout: float = 0.2
 
     @staticmethod
     def tiny():
@@ -48,14 +62,16 @@ class _Embeddings(nn.Module):
         self.position_embeddings = Embedding(c.max_position, c.hidden_size, dtype)
         self.token_type_embeddings = Embedding(c.type_vocab_size, c.hidden_size, dtype)
         self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
+        self.dropout = Dropout(c.hidden_dropout)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, generator=None):
         L = input_ids.shape[1]
         pos = torch.arange(L, device=input_ids.device)[None, :]
         x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
         # the last sum enters the LayerNorm unrounded (models/layers.py)
-        return self.LayerNorm(
-            x.float() + self.token_type_embeddings(torch.zeros_like(input_ids)).float())
+        return self.dropout(self.LayerNorm(
+            x.float() + self.token_type_embeddings(torch.zeros_like(input_ids)).float()),
+            generator)
 
 
 class _SelfAttention(nn.Module):
@@ -65,8 +81,9 @@ class _SelfAttention(nn.Module):
         self.query = Dense(c.hidden_size, c.hidden_size, dtype=dtype)
         self.key = Dense(c.hidden_size, c.hidden_size, dtype=dtype)
         self.value = Dense(c.hidden_size, c.hidden_size, dtype=dtype)
+        self.dropout = Dropout(c.attention_dropout)
 
-    def forward(self, x, bias):
+    def forward(self, x, bias, generator=None):
         B, S, D = x.shape
         H = self.num_heads
         hd = D // H
@@ -79,22 +96,24 @@ class _SelfAttention(nn.Module):
         logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * inv_sqrt(hd)
         if bias is not None:
             logits = logits + bias
-        probs = torch.softmax(logits, dim=-1)
+        probs = self.dropout(torch.softmax(logits, dim=-1), generator)
         out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
         return out.transpose(1, 2).reshape(B, S, D)
 
 
 class _DenseNorm(nn.Module):
-    """Dense → residual → LayerNorm (HF ``BertSelfOutput`` / ``BertOutput``
-    in eval mode)."""
+    """Dense → dropout → residual → LayerNorm (HF ``BertSelfOutput`` /
+    ``BertOutput``)."""
 
     def __init__(self, d_in: int, c: BertConfig, dtype):
         super().__init__()
         self.dense = Dense(d_in, c.hidden_size, dtype=dtype)
         self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
+        self.dropout = Dropout(c.hidden_dropout)
 
-    def forward(self, h, residual):
-        return self.LayerNorm(residual.float() + self.dense(h).float())
+    def forward(self, h, residual, generator=None):
+        return self.LayerNorm(residual.float()
+                              + self.dropout(self.dense(h), generator).float())
 
 
 class _Attention(nn.Module):
@@ -103,8 +122,8 @@ class _Attention(nn.Module):
         self.self = _SelfAttention(c, dtype)
         self.output = _DenseNorm(c.hidden_size, c, dtype)
 
-    def forward(self, x, bias):
-        return self.output(self.self(x, bias), x)
+    def forward(self, x, bias, generator=None):
+        return self.output(self.self(x, bias, generator), x, generator)
 
 
 class _Intermediate(nn.Module):
@@ -123,9 +142,9 @@ class _Layer(nn.Module):
         self.intermediate = _Intermediate(c, dtype)
         self.output = _DenseNorm(c.intermediate_size, c, dtype)
 
-    def forward(self, x, bias):
-        x = self.attention(x, bias)
-        return self.output(self.intermediate(x), x)
+    def forward(self, x, bias, generator=None):
+        x = self.attention(x, bias, generator)
+        return self.output(self.intermediate(x), x, generator)
 
 
 class _Encoder(nn.Module):
@@ -166,16 +185,16 @@ class BertLanguageEncoder(nn.Module):
         self.dtype = dtype
         self.bert = _BertModel(cfg, dtype)
         self.linears = MLPHead(cfg.hidden_size, cfg.head_dims, relu_last=True,
-                               dtype=dtype)
+                               dtype=dtype, dropout=cfg.head_dropout)
 
-    def forward(self, input_ids, attention_mask=None):
-        x = self.bert.embeddings(input_ids)
+    def forward(self, input_ids, attention_mask=None, generator=None):
+        x = self.bert.embeddings(input_ids, generator)
         bias = None
         if attention_mask is not None:
             # HF convention: additive bias on padded keys (float32, as the
             # logits it is added to)
             bias = torch.where(attention_mask.bool(), 0.0, -1e9)[:, None, None, :]
         for layer in self.bert.encoder.layer:
-            x = layer(x, bias)
+            x = layer(x, bias, generator)
         pooled = self.bert.pooler(x)
-        return x, self.linears(pooled), pooled
+        return x, self.linears(pooled, generator), pooled

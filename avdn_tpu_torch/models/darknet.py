@@ -214,16 +214,40 @@ class Conv2d(nn.Conv2d):
         return y if self.bias is None else y + self.bias.to(self.dtype)[:, None, None]
 
 
+#: flax's ``BatchNorm(momentum=...)`` of the JAX tower (``bn_momentum``):
+#: the running statistics keep 0.9 of their value at each train-mode call
+BN_MOMENTUM = 0.9
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval-mode ``nn.BatchNorm2d`` normalising in float32 and returning
-    ``dtype`` (flax ``nn.BatchNorm(dtype=...)``)."""
+    """``nn.BatchNorm2d`` normalising in float32 and returning ``dtype``
+    (flax ``nn.BatchNorm(dtype=...)``). Eval mode normalises with the
+    running statistics. Train mode is flax's ``use_running_average=False``:
+    it normalises with the batch's mean and biased variance over (N, H, W)
+    and then updates the running statistics as
+    ``r ← μ·r + (1 − μ)·s`` with μ = :data:`BN_MOMENTUM` and the batch's
+    biased variance computed as flax does, E[x²] − E[x]² clipped at 0.
+    (``torch.nn.BatchNorm2d``'s own update would use the unbiased variance
+    and weigh the new value by its ``momentum``.) The update is in place,
+    outside autograd, so T calls in a row chain the statistics as T steps
+    of a rollout do."""
 
     def __init__(self, n: int, eps: float, dtype=torch.float32):
         super().__init__(n, eps=eps)
         self.dtype = dtype
 
     def forward(self, x):
-        return super().forward(x.float()).to(self.dtype)
+        x = x.float()
+        if not self.training:
+            return super().forward(x).to(self.dtype)
+        with torch.no_grad():
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mu = BN_MOMENTUM
+            self.running_mean.copy_(mu * self.running_mean + (1.0 - mu) * mean)
+            self.running_var.copy_(mu * self.running_var + (1.0 - mu) * var)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return y.to(self.dtype)
 
 
 def leaky_slope(dtype) -> float:

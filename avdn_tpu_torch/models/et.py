@@ -15,7 +15,10 @@ parameter names:
 
 Outputs: action (B, 4) = (Δx ratio, Δy ratio, altitude, progress) and
 saliency (B, 224, 224), in the compute ``dtype`` (flax's rules,
-``models/layers.py``).
+``models/layers.py``). In train mode dropout runs at the JAX module's sites
+(after the input LayerNorm, in every encoder layer, in the action head and
+on the saliency projection), its masks drawn from the ``generator`` passed
+to ``forward``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch import nn
 
 from avdn_tpu_torch.models.layers import (
     Dense,
+    Dropout,
     LayerNorm,
     MLPHead,
     SoftDotAttention,
@@ -43,6 +47,8 @@ class ETConfig:
     demb: int = 768
     encoder_heads: int = 12
     encoder_layers: int = 2
+    dropout_transformer: float = 0.1
+    dropout_emb: float = 0.0
     spatial_dim: int = 49  # 7x7 darknet grid
     pos_max_len: int = 1250
     saliency_hw: int = 224
@@ -54,7 +60,8 @@ class _EncoderVL(nn.Module):
         self.enc_layernorm = LayerNorm(c.demb, eps=1e-5, dtype=dtype)
         self.enc_transformer = nn.Module()
         self.enc_transformer.layers = nn.ModuleList([
-            TransformerEncoderLayer(c.demb, c.encoder_heads, c.demb, dtype)
+            TransformerEncoderLayer(c.demb, c.encoder_heads, c.demb, dtype,
+                                    c.dropout_transformer)
             for _ in range(c.encoder_layers)
         ])
 
@@ -74,6 +81,8 @@ class HAATransformer(nn.Module):
         self.decoder_2_action_full = MLPHead(c.demb, (256, 32, 4), dtype=dtype,
                                              keep_f32=True)
         self.fc = nn.Sequential(Dense(c.demb, 64, dtype=dtype), nn.ReLU())  # saliency
+        self.emb_dropout = Dropout(c.dropout_emb)
+        self.saliency_dropout = Dropout(0.2)
         self.register_buffer(
             "pe", sinusoidal_pos_encoding(c.pos_max_len, c.demb), persistent=False)
 
@@ -84,6 +93,7 @@ class HAATransformer(nn.Module):
         frames,        # (B, T, C, 49) darknet features, channel-major
         directions,    # (B, T, 2) (sin, cos) headings
         lengths,       # (B,) valid history length per item (>= 1)
+        generator=None,
     ):
         """The trunk: embeddings, positional encoding and the encoder layers
         over the ``[lang | frames | directions]`` sequence. Returns the last
@@ -103,7 +113,7 @@ class HAATransformer(nn.Module):
         lang_pe, emb_frames, emb_dirs = add_haa_pos_encoding(
             lang, emb_frames, emb_dirs, self.pe.to(self.dtype))
         seq = torch.cat([lang_pe, emb_frames, emb_dirs], dim=1)
-        seq = self.encoder_vl.enc_layernorm(seq)
+        seq = self.emb_dropout(self.encoder_vl.enc_layernorm(seq), generator)
 
         # ---- masks: the reference never masks language padding in the
         # trunk (src/models/enc_vl.py:49-55 masks only frames/directions) ----
@@ -112,23 +122,23 @@ class HAATransformer(nn.Module):
         lang_pad = torch.zeros((B, L), dtype=torch.bool, device=seq.device)
         key_pad = torch.cat([lang_pad, step_pad, step_pad], dim=1)
         for layer in self.encoder_vl.enc_transformer.layers:
-            seq = layer(seq, attn_mask, key_pad)
+            seq = layer(seq, attn_mask, key_pad, generator)
         return seq
 
-    def readout(self, vis_tok, dir_tok):
+    def readout(self, vis_tok, dir_tok, generator=None):
         """Visual token → saliency (N, 224, 224); direction token → action
         (N, 4)."""
-        action = self.decoder_2_action_full(dir_tok)
-        sal = self.fc(vis_tok)
+        action = self.decoder_2_action_full(dir_tok, generator)
+        sal = self.fc[1](self.saliency_dropout(self.fc[0](vis_tok), generator))
         saliency = saliency_upsample(sal.reshape(-1, 8, 8), self.cfg.saliency_hw)
         return action, saliency
 
-    def forward(self, lang, lang_cls, frames, directions, lengths):
+    def forward(self, lang, lang_cls, frames, directions, lengths, generator=None):
         """One step's outputs: the trunk over the padded history, read out at
         the batch-max valid step (ET_haa.py:157-158)."""
         L, T = lang.shape[1], frames.shape[1]
-        seq = self.encode(lang, lang_cls, frames, directions, lengths)
+        seq = self.encode(lang, lang_cls, frames, directions, lengths, generator)
         max_len = lengths.max()
         vis_tok = seq.index_select(1, (L + max_len - 1).reshape(1))[:, 0]
         dir_tok = seq.index_select(1, (L + T + max_len - 1).reshape(1))[:, 0]
-        return self.readout(vis_tok, dir_tok)
+        return self.readout(vis_tok, dir_tok, generator)

@@ -7,8 +7,9 @@ encoding (src/models/encodings.py:7-49), the structural attention mask
 post-LN transformer encoder layer. Parameter names follow the reference
 state-dict layout (``linear_in``, ``self_attn.in_proj_weight``, Sequential
 indices), so ``compat/from_jax.py`` state dicts load strictly. Attention is
-written out as matmul + masked softmax, the JAX formulation. The port runs
-inference only, so dropout exists only where it fixes a Sequential index.
+written out as matmul + masked softmax, the JAX formulation. Dropout sits
+where the flax modules have it (:class:`Dropout`, flax's semantics); its
+masks come from the ``torch.Generator`` the caller passes to ``forward``.
 
 Compute dtype. Every module takes a ``dtype`` (float32 or bfloat16) and
 computes as the flax module with that ``dtype`` does, parameters staying
@@ -131,6 +132,31 @@ def promote(*xs):
     return [x.to(dt) for x in xs]
 
 
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: in train mode each value is kept with
+    probability ``1 − p`` and scaled by ``1/(1 − p)``
+    (``where(mask, x / keep, 0)``), the mask drawn from the ``generator``
+    the caller passes (required then: no global random state). The identity
+    in eval mode or at ``p == 0``; parameter-free, so it never shifts a
+    state-dict name."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator=None):
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in train mode draws its mask from the "
+                             "caller's torch.Generator; none was given")
+        keep = 1.0 - self.p
+        if keep == 0.0:
+            return torch.zeros_like(x)
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+
 class SoftDotAttention(nn.Module):
     """Luong-style soft dot attention: ``h`` (B, dim) attends over
     ``context`` (B, L, dim); returns ``tanh(W_out [attn·context ; h])`` and
@@ -159,23 +185,28 @@ class MLPHead(nn.Sequential):
     """Linear/ReLU/Dropout stack, e.g. the action decoder 768→256→32→4
     (src/models/ET_haa.py:98-108, Linear indices 0, 3, 6) or the BERT
     768→64→49 head (src/models/vln_model.py:140-146, indices 0, 3, with a
-    final ReLU: ``relu_last``). The Dropouts (identity in eval) keep the
-    reference's Sequential indices."""
+    final ReLU: ``relu_last``). The Dropouts keep the reference's
+    Sequential indices."""
 
     def __init__(self, in_features: int, features: Sequence[int],
                  relu_last: bool = False, dtype=torch.float32,
-                 keep_f32: bool = False):
+                 keep_f32: bool = False, dropout: float = 0.2):
         layers = []
         d = in_features
         for i, f in enumerate(features):
             layers.append(Dense(d, f, dtype=dtype,
                                 keep_f32=keep_f32 and i == len(features) - 1))
             if i < len(features) - 1:
-                layers += [nn.ReLU(), nn.Dropout(0.2)]
+                layers += [nn.ReLU(), Dropout(dropout)]
             elif relu_last:
                 layers.append(nn.ReLU())
             d = f
         super().__init__(*layers)
+
+    def forward(self, x, generator=None):
+        for layer in self:
+            x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
+        return x
 
 
 def sinusoidal_pos_encoding(max_len: int, d_model: int, device=None) -> torch.Tensor:
@@ -255,16 +286,18 @@ class MultiheadSelfAttention(nn.Module):
     (``in_proj_weight``/``in_proj_bias``/``out_proj``), so reference
     checkpoints load 1:1. ``bias`` is the additive (B or 1, 1, S, S) mask."""
 
-    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = Dense(d_model, d_model, dtype=dtype)
+        self.dropout = Dropout(dropout)  # on the attention probabilities
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x, bias):
+    def forward(self, x, bias, generator=None):
         B, S, D = x.shape
         H = self.num_heads
         hd = D // H
@@ -276,26 +309,32 @@ class MultiheadSelfAttention(nn.Module):
         logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * inv_sqrt(hd) + bias
         # guard fully-masked rows (all -inf) against NaN softmax
         probs = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
+        probs = self.dropout(probs, generator)
         out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
         return self.out_proj(out.transpose(1, 2).reshape(B, S, D))
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN transformer encoder layer with torch
-    ``nn.TransformerEncoderLayer`` semantics in eval mode (the reference
-    trunk, src/models/enc_vl.py:16-22): MHA → add → LN, then FF(relu) →
-    add → LN."""
+    ``nn.TransformerEncoderLayer`` semantics (the reference trunk,
+    src/models/enc_vl.py:16-22): MHA → dropout → add → LN, then FF(relu) →
+    dropout → add → LN, with flax's dropout sites (the attention
+    probabilities, the attention output, after the ReLU and the FF
+    output)."""
 
     def __init__(self, d_model: int, num_heads: int, ff_dim: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout: float = 0.1):
         super().__init__()
-        self.self_attn = MultiheadSelfAttention(d_model, num_heads, dtype)
+        self.self_attn = MultiheadSelfAttention(d_model, num_heads, dtype, dropout)
         self.linear1 = Dense(d_model, ff_dim, dtype=dtype)
         self.linear2 = Dense(ff_dim, d_model, dtype=dtype)
         self.norm1 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
         self.norm2 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
+        self.dropout1 = Dropout(dropout)
+        self.dropout = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
 
-    def forward(self, x, attn_mask=None, key_pad_mask=None):
+    def forward(self, x, attn_mask=None, key_pad_mask=None, generator=None):
         # attn_mask: (S, S) additive; key_pad_mask: (B, S) True = masked;
         # the bias holds only 0 and -inf, so its dtype does not matter
         S = x.shape[1]
@@ -307,5 +346,8 @@ class TransformerEncoderLayer(nn.Module):
             pad = pad.masked_fill(key_pad_mask, float("-inf"))
             bias = bias + pad[:, None, None, :]
         # the residual sums enter the LayerNorms unrounded (float32)
-        x = self.norm1(x.float() + self.self_attn(x, bias).float())
-        return self.norm2(x.float() + self.linear2(F.relu(self.linear1(x))).float())
+        attn = self.dropout1(self.self_attn(x, bias, generator), generator)
+        x = self.norm1(x.float() + attn.float())
+        ff = self.dropout(F.relu(self.linear1(x)), generator)
+        ff = self.dropout2(self.linear2(ff), generator)
+        return self.norm2(x.float() + ff.float())

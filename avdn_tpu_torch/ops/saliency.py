@@ -13,6 +13,16 @@ launch one hand-written CUDA kernel (``csrc/saliency_stats.cu``) that does
 both the pass and the tail; ``saliency_stats.launches`` counts its launches.
 Tensors on the CPU take the plain versions, ``saliency_reductions_plain``
 and ``saliency_stats_plain``.
+
+Training differentiates −NSS in ``pred`` (``gt`` is a constant: it comes
+from the render, outside autograd). On the card ``saliency_reductions`` is
+then a ``torch.autograd.Function`` whose backward launches a second
+hand-written kernel, ``csrc/saliency_nss_grad.cu`` (counted in
+``saliency_nss_grad.launches``); on the CPU autograd runs through the plain
+version. ``valid``, ``precision`` and ``recall`` carry no gradient. Where
+``std == 0`` the gradient is 0: XLA's autodiff of the JAX formula gives NaN
+there (0·∞ through the square root's derivative) although the item is
+invalid and masked out of the loss; the port's ``std`` avoids that.
 """
 
 from __future__ import annotations
@@ -56,7 +66,9 @@ def reductions_from_stats(s: torch.Tensor, n: int, nss_r: int = 0):
     sum_p, sum_p2, sum_pg, sum_g, sum_pcg, sum_pc = s[:, :6].unbind(dim=1)
     mean = sum_p / n
     var = (sum_p2 - n * mean * mean) / (n - 1)
-    std = torch.sqrt(torch.clamp(var, min=0.0))
+    # sqrt(max(var, 0)), with a zero gradient (not 0·∞) where var <= 0
+    pos = var > 0
+    std = torch.where(pos, torch.sqrt(torch.where(pos, var, 1.0)), 0.0)
     # Σ z·g = (Σ p·g − mean·Σ g) / std
     z_dot = (sum_pg - mean * sum_g) / torch.where(std > 0, std, 1.0)
     if nss_r == 1:
@@ -65,6 +77,7 @@ def reductions_from_stats(s: torch.Tensor, n: int, nss_r: int = 0):
         z_dot = z_dot / 2 - sum_g
     nss = z_dot / (sum_g + 0.001)
     valid = (sum_g > 0) & torch.isfinite(nss) & (std > 0)
+    sum_pcg, sum_pc, sum_g = sum_pcg.detach(), sum_pc.detach(), sum_g.detach()
     precision = torch.where(sum_pc > 0, sum_pcg / torch.clamp(sum_pc, min=1e-20), 0.0)
     recall = sum_pcg / torch.clamp(sum_g, min=1e-20)
     return -nss, valid, precision, recall
@@ -72,9 +85,22 @@ def reductions_from_stats(s: torch.Tensor, n: int, nss_r: int = 0):
 
 def saliency_reductions_plain(pred: torch.Tensor, gt: torch.Tensor, nss_r: int = 0):
     """Plain version of :func:`saliency_reductions`: the plain stats and
-    :func:`reductions_from_stats`."""
-    stats = saliency_stats_plain(pred.float(), gt.float())
+    :func:`reductions_from_stats` (differentiable in ``pred`` under
+    autograd; ``gt`` is taken as a constant)."""
+    stats = saliency_stats_plain(pred.float(), gt.float().detach())
     return reductions_from_stats(stats, pred.shape[1] * pred.shape[2], nss_r)
+
+
+def saliency_nss_grad_plain(pred: torch.Tensor, gt: torch.Tensor,
+                            upstream: torch.Tensor, nss_r: int = 0) -> torch.Tensor:
+    """Plain version of :func:`saliency_nss_grad`: dL/dpred for
+    ``upstream`` = dL/d(−NSS), by autograd through
+    :func:`saliency_reductions_plain`."""
+    with torch.enable_grad():
+        p = pred.detach().float().requires_grad_(True)
+        neg_nss = saliency_reductions_plain(p, gt, nss_r)[0]
+        (grad,) = torch.autograd.grad(neg_nss, p, upstream)
+    return grad
 
 
 # ------------------------------------------------------------- the kernel --
@@ -108,6 +134,22 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _grad_kernel():
+    lib = build.load("saliency_nss_grad")
+    fn = lib.saliency_nss_grad_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream(dev: torch.device) -> int:
+    if dev.index == torch.cuda.current_device():
+        return torch.cuda.current_stream().cuda_stream
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream().cuda_stream
 
 
 def _check_kernel_inputs(pred: torch.Tensor, gt: torch.Tensor) -> None:
@@ -147,14 +189,9 @@ def saliency_fused(pred: torch.Tensor, gt: torch.Tensor, nss_r: int = 0):
     out = torch.empty(12 * B, dtype=torch.float32, device=dev)
     stats, neg_nss, precision, recall, flags = out.split((8 * B, B, B, B, B))
     valid = flags.view(torch.bool)[:B]
-    if dev.index == torch.cuda.current_device():
-        stream = torch.cuda.current_stream().cuda_stream
-    else:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
     err = _kernel()(
         pred.data_ptr(), gt.data_ptr(), stats.data_ptr(), neg_nss.data_ptr(),
-        valid.data_ptr(), B, H * W, nss_r, cluster, stream)
+        valid.data_ptr(), B, H * W, nss_r, cluster, _stream(dev))
     if err != 0:
         raise RuntimeError(f"saliency kernel launch failed (B={B}, cluster "
                            f"{cluster}): CUDA error {err}")
@@ -174,12 +211,65 @@ def saliency_stats(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 saliency_stats.launches = 0
 
 
+def saliency_nss_grad(pred: torch.Tensor, gt: torch.Tensor, stats: torch.Tensor,
+                      upstream: torch.Tensor, nss_r: int = 0) -> torch.Tensor:
+    """Launch the backward kernel on the card: dL/dpred (B, H, W) of the
+    −NSS output, from the maps, the forward's (B, 8) ``stats`` and
+    ``upstream`` = dL/d(−NSS) (B,). Counted in
+    ``saliency_nss_grad.launches``; raises on any input the kernel does not
+    take and on a launch error."""
+    _check_kernel_inputs(pred, gt)
+    B, H, W = pred.shape
+    for name, t, shape in (("stats", stats, (B, 8)), ("upstream", upstream, (B,))):
+        if (t.device != pred.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"saliency grad kernel: {name} is {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device} (contiguous: "
+                             f"{t.is_contiguous()}), expected contiguous float32 "
+                             f"{shape} on {pred.device}")
+    grad = torch.empty_like(pred)
+    err = _grad_kernel()(
+        pred.data_ptr(), gt.data_ptr(), stats.data_ptr(), upstream.data_ptr(),
+        grad.data_ptr(), B, H * W, nss_r, _stream(pred.device))
+    if err != 0:
+        raise RuntimeError(f"saliency grad kernel launch failed (B={B}): "
+                           f"CUDA error {err}")
+    saliency_nss_grad.launches += 1
+    return grad
+
+
+saliency_nss_grad.launches = 0
+
+
+class _FusedReductions(torch.autograd.Function):
+    """The fused kernel as the forward, :func:`saliency_nss_grad` as the
+    backward of −NSS."""
+
+    @staticmethod
+    def forward(ctx, pred, gt, nss_r):
+        stats, neg_nss, valid, precision, recall = saliency_fused(pred, gt, nss_r)
+        ctx.save_for_backward(pred, gt, stats)
+        ctx.nss_r = nss_r
+        ctx.mark_non_differentiable(valid, precision, recall)
+        return neg_nss, valid, precision, recall
+
+    @staticmethod
+    def backward(ctx, d_neg_nss, *_):
+        pred, gt, stats = ctx.saved_tensors
+        return saliency_nss_grad(pred, gt, stats, d_neg_nss.contiguous(),
+                                 ctx.nss_r), None, None
+
+
 def saliency_reductions(pred: torch.Tensor, gt: torch.Tensor, nss_r: int = 0):
     """NSS (negated, reference convention) + HA precision/recall from the
     fused stats. Returns (neg_nss (B,), valid (B,), precision (B,),
     recall (B,)). Matches ``ops.losses.nss_loss`` and the HA formulas. On the
-    card one kernel launch computes all four; CPU tensors take
+    card one kernel launch computes all four, and when ``pred`` requires a
+    gradient the backward kernel gives −NSS's; CPU tensors take
     :func:`saliency_reductions_plain`."""
     if pred.device.type == "cpu" and gt.device.type == "cpu":
         return saliency_reductions_plain(pred, gt, nss_r)
-    return saliency_fused(pred.contiguous(), gt.contiguous(), nss_r)[1:]
+    pred, gt = pred.contiguous(), gt.detach().contiguous()
+    if torch.is_grad_enabled() and pred.requires_grad:
+        return _FusedReductions.apply(pred, gt, nss_r)
+    return saliency_fused(pred, gt, nss_r)[1:]

@@ -13,10 +13,14 @@ Semantics preserved from the reference (each deliberate):
 * movement is gated on the CURRENT stop decision only — previously-ended
   items still zoom/move invisibly (agent.py:733-757); their trajectory is
   simply no longer logged;
-* the stop threshold is 0.5 (ET, teacher-forced and student;
-  ``STOP_THRESHOLD``);
+* the stop threshold is 0.5 teacher-forced (``STOP_THRESHOLD``) and
+  ``cfg.stop_threshold`` student (0.5 for ET);
 * a step where every item is already ended contributes no loss (the
-  reference breaks out of the loop, agent.py:771).
+  reference breaks out of the loop, agent.py:771);
+* in train mode the simulator feedback is detached (the reference steps
+  its env on host numpy, agent.py:724-755): render, oracle and dynamics run
+  outside autograd, and a step's loss reaches the model only through that
+  step's outputs.
 """
 
 from __future__ import annotations
@@ -67,13 +71,15 @@ class EpisodeBatch:
 
 @dataclasses.dataclass(frozen=True)
 class RolloutConfig:
-    """The eval rollout's settings (the JAX config's remat and train fields
-    belong to training, which this port has not reached; eval rollouts carry
-    no NSS loss term, ``nss_w`` = 0 in JAX)."""
+    """The rollout's settings (the JAX config's, but ``remat``: see
+    ``train/step.py:check_train_supported``)."""
 
     max_action_len: int = 10
     teacher_forcing: bool = True       # feedback mode
+    stop_threshold: float = 0.5        # student stop (ET 0.5)
     compute_losses: bool = True        # False for serving / test_unseen
+    train: bool = False                # dropout + BN batch statistics
+    nss_w: float = 0.0                 # weight of the −NSS loss term
     nss_r: int = 0
     language_only: bool = False        # zero out visual features (ablation)
     no_direction: bool = False         # zero out heading features (ablation)
@@ -182,7 +188,8 @@ def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
     ``(new_model_state, action (B, 4), saliency (B, H, W))``; ``images`` are
     the normalised (B, 224, 224, 3) views. ``generator`` draws the
     reference's heading jitter of the loss (on the batch's device).
-    Returns ``(RolloutOutputs, final model_state)``.
+    Returns ``(RolloutOutputs, final model_state)``; with ``cfg.train`` the
+    loss carries the autograd graph of the model's outputs.
     """
     B = batch.start_corners.shape[0]
     T = cfg.max_action_len
@@ -201,7 +208,8 @@ def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
         any_alive = ~ended.all()
 
         # ---- render current views on device ----
-        views, gt_sal = render_views(map_bank, batch, corners, cfg)
+        with torch.no_grad():
+            views, gt_sal = render_views(map_bank, batch, corners, cfg)
         # input normalisation — the /std is folded into the first conv when
         # the eval tower is BN-folded (fold_darknet_params); the mean
         # subtraction stays here (the conv zero-pads the NORMALISED tensor)
@@ -231,27 +239,34 @@ def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
 
         # ---- oracle + losses ----
         if cfg.compute_losses:
-            oracle = teacher_action_batch(corners, ended, batch.gt_corners,
-                                          batch.gt_len, cfg.teacher_forcing)
+            with torch.no_grad():
+                oracle = teacher_action_batch(corners, ended, batch.gt_corners,
+                                              batch.gt_len, cfg.teacher_forcing)
             gt_wp = oracle["waypoint_ratio"]
             gt_alt = oracle["altitude"]
             gt_prog = oracle["progress"]
             heading_eps = 1e-5 * torch.rand((B,), generator=generator, device=dev)
             ml = step_losses(pred_wp, pred_alt, pred_prog, gt_wp, gt_alt,
                              gt_prog, heading_eps)
+            if cfg.nss_w:
+                ml = ml + cfg.nss_w * torch.where(nss_valid, neg_nss, 0.0).sum()
             loss = loss + torch.where(any_alive, ml, 0.0)
         else:
             gt_wp = torch.zeros((B, 2), dtype=torch.float32, device=dev)
             gt_alt, gt_prog = zeros, zeros
 
-        # ---- feedback + stop decision ----
+        # ---- feedback + stop decision (detached: the simulator is not part
+        # of the reference's autodiff graph, agent.py:724-755) ----
         if cfg.teacher_forcing:
             act_wp, act_alt, prog_stop = gt_wp, gt_alt, gt_prog
+            thresh = STOP_THRESHOLD
         else:
             act_wp, act_alt, prog_stop = wp_norm, alt_clip, prog_clip
-        stop_now, new_corners, new_dirs = dynamics_update(
-            corners, directions, act_wp, act_alt, prog_stop, STOP_THRESHOLD, t, T,
-            batch.extent)
+            thresh = cfg.stop_threshold
+        with torch.no_grad():
+            stop_now, new_corners, new_dirs = dynamics_update(
+                corners, directions, act_wp.detach(), act_alt.detach(),
+                prog_stop.detach(), thresh, t, T, batch.extent)
         ended_next = ended | stop_now
 
         y = dict(
@@ -285,13 +300,17 @@ def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
     return RolloutOutputs(loss=loss, **stacked), model_state
 
 
-def make_et_step(darknet_model, et_model, batch: EpisodeBatch, cfg: RolloutConfig):
+def make_et_step(darknet_model, et_model, batch: EpisodeBatch, cfg: RolloutConfig,
+                 generator: Optional[torch.Generator] = None):
     """ET closure: pads history to T and re-encodes the full episode each
     step (the reference's O(T²) semantics, agent.py:605-630, kept for model
-    parity — the transformer *is* history-conditioned). The history buffers
-    are updated in place. With ``cfg.et_decode_trunk`` the re-encode is
-    replaced by the incremental KV decode (``_make_et_decode_step``)."""
-    if cfg.et_decode_trunk:
+    parity — the transformer *is* history-conditioned). In eval the history
+    buffers are updated in place; with ``cfg.train`` they are rebuilt out of
+    place from the per-step features each step (autograd needs every step's
+    buffer as it was), and the models' dropout draws from ``generator``. With
+    ``cfg.et_decode_trunk`` (eval only) the re-encode is replaced by the
+    incremental KV decode (``_make_et_decode_step``)."""
+    if cfg.et_decode_trunk and not cfg.train:
         return _make_et_decode_step(darknet_model, et_model, batch, cfg)
     B = batch.lang_feat.shape[0]
     T = cfg.max_action_len
@@ -308,11 +327,18 @@ def make_et_step(darknet_model, et_model, batch: EpisodeBatch, cfg: RolloutConfi
         feats = darknet_model(x)
         if cfg.language_only:
             feats = torch.zeros_like(feats)
-        state["frames"][:, t] = feats
-        state["dirs"][:, t] = dir_feat
+        if cfg.train:
+            state["feats"] = state.get("feats", []) + [feats]
+            pad = state["frames"][:, len(state["feats"]):]
+            state["frames"] = torch.cat([torch.stack(state["feats"], 1), pad], 1)
+            state["dirs"] = torch.cat([state["dirs"][:, :t], dir_feat[:, None],
+                                       state["dirs"][:, t + 1:]], 1)
+        else:
+            state["frames"][:, t] = feats
+            state["dirs"][:, t] = dir_feat
         state["lengths"] = state["lengths"] + (~ended).long()
         action, sal = et_model(batch.lang_feat, batch.lang_cls, state["frames"],
-                               state["dirs"], state["lengths"])
+                               state["dirs"], state["lengths"], generator)
         return state, action, sal
 
     return step, init_state

@@ -10,15 +10,20 @@ steers. So:
 1. a geometry-only loop unrolls the whole trajectory first (oracle, stop,
    dynamics; no render, no model);
 2. all T·B views render in ONE call;
-3. the vision tower runs once over the flat T·B batch (eval-mode BatchNorm
-   makes that identical to T per-step calls);
-4. the ET trunk runs once over the full history (``models/et_fast.py``), or
-   as the T step-masked calls of the step loop;
-5. the saliency kernel runs once over the T·B maps.
+3. the vision tower runs once over the flat T·B batch in eval (running
+   statistics make that identical to T per-step calls); in train mode it
+   runs T train-mode calls over the (B, …) views of each step, so BatchNorm
+   normalises with each step's statistics over (B, H, W) and the running
+   statistics chain step after step, as in the step loop (the JAX package
+   rebuilds that chain from a ``vmap``, ``_bn_stats_chain``);
+4. the ET trunk runs once over the full history (``models/et_fast.py``,
+   eval), or as the T step-masked calls of the step loop (train mode, with
+   each call's own dropout masks, and ``--fast_eval_trunk False``);
+5. the saliency kernel runs once over the T·B maps (and in train mode its
+   backward kernel once, when the loss holds the −NSS term).
 
 The result is the same ``RolloutOutputs`` as ``engine.rollout`` with a
-teacher-forcing config. The train mode (per-step BatchNorm statistics) is
-ROADMAP.md queue 1 item 10; the LSTM family is item 11.
+teacher-forcing config. The LSTM family is ROADMAP.md queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -103,30 +108,36 @@ def _render_all(map_bank, batch: EpisodeBatch, corners_tb, cfg: RolloutConfig):
     return views.reshape(T, B, *views.shape[1:]), gt_sal.reshape(T, B, *gt_sal.shape[1:])
 
 
-def _tower_features(darknet_model, x_tb):
-    """The vision tower over the flat T·B batch (eval mode: running
-    statistics make it equal to T per-step calls). ``x_tb``: (T, B, H, W, 3)
-    normalised views. Returns feats (T, B, C, S)."""
+def _tower_features(darknet_model, x_tb, cfg: RolloutConfig):
+    """The vision tower over the T·B views ``x_tb`` (T, B, H, W, 3),
+    normalised. Eval: one call over the flat batch (running statistics make
+    it equal to T per-step calls). Train: T calls in step order, each
+    normalising with its own batch statistics and updating the running ones
+    after the last. Returns feats (T, B, C, S)."""
     T, B = x_tb.shape[:2]
+    if cfg.train:
+        return torch.stack([darknet_model(x_tb[t]) for t in range(T)])
     feats = darknet_model(x_tb.reshape(T * B, *x_tb.shape[2:]))
     return feats.reshape(T, B, *feats.shape[1:])
 
 
 def _et_actions(et_model, batch: EpisodeBatch, cfg: RolloutConfig, feats,
-                dir_feat, ended_pre):
+                dir_feat, ended_pre, generator=None):
     """All T step outputs of the ET trunk: ``(actions (T, B, 4), saliency
     (T, B, hw, hw))``.
 
     The step loop's history buffer at step t holds the features of
     positions ≤ t and zeros beyond, and its lengths are the cumulative
-    alive counts; masking the full buffer reproduces it. With
+    alive counts; masking the full buffer reproduces it. In eval with
     ``fast_eval_trunk`` one pass over the full history gives all T outputs
-    (``teacher_onepass``); otherwise the trunk runs once per step."""
+    (``teacher_onepass``); otherwise (always in train mode, where each
+    step's pass draws its own dropout masks from ``generator``) the trunk
+    runs once per step."""
     T = feats.shape[0]
     frames = feats.transpose(0, 1)        # (B, T, C, S)
     dirs = dir_feat.transpose(0, 1)       # (B, T, 2)
     lengths_t = torch.cumsum((~ended_pre).long(), dim=0)  # (T, B)
-    if cfg.fast_eval_trunk:
+    if cfg.fast_eval_trunk and not cfg.train:
         return teacher_onepass(et_model, batch.lang_feat, batch.lang_cls, frames,
                                dirs, lengths_t)
     actions, sal = [], []
@@ -134,7 +145,8 @@ def _et_actions(et_model, batch: EpisodeBatch, cfg: RolloutConfig, feats,
         keep = torch.arange(T, device=frames.device) <= t
         a, s = et_model(batch.lang_feat, batch.lang_cls,
                         torch.where(keep[None, :, None, None], frames, 0.0),
-                        torch.where(keep[None, :, None], dirs, 0.0), lengths_t[t])
+                        torch.where(keep[None, :, None], dirs, 0.0), lengths_t[t],
+                        generator)
         actions.append(a)
         sal.append(s)
     return torch.stack(actions), torch.stack(sal)
@@ -145,25 +157,23 @@ def rollout_teacher_fused(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
                           generator: torch.Generator) -> RolloutOutputs:
     """Teacher-forced rollout with the render, towers and saliency
     statistics batched over time; equal to ``engine.rollout`` with the same
-    teacher-forcing config and generator."""
+    teacher-forcing config and generator. With ``cfg.train`` the loss carries
+    the autograd graph of the model's outputs and ``generator`` also draws
+    the dropout masks."""
     if not cfg.teacher_forcing:
         raise ValueError("the fused rollout is teacher forcing only")
     if family != "et":
         raise NotImplementedError(
             f"--family {family}: the LSTM family's fused rollout is ROADMAP.md "
             "queue 1 item 11")
-    if darknet_model.training or vln_model.training:
-        raise NotImplementedError(
-            "the fused teacher rollout in train mode (per-step BatchNorm "
-            "statistics and dropout) is ROADMAP.md queue 1 item 10")
     B = batch.start_corners.shape[0]
     T = cfg.max_action_len
     dev = batch.start_corners.device
 
-    geo = teacher_geometry(batch, cfg, generator)
-
-    # ---- one render of every (t, b) view ----
-    views, gt_sal = _render_all(map_bank, batch, geo["corners_pre"], cfg)
+    with torch.no_grad():  # the simulator is outside autograd
+        geo = teacher_geometry(batch, cfg, generator)
+        # ---- one render of every (t, b) view ----
+        views, gt_sal = _render_all(map_bank, batch, geo["corners_pre"], cfg)
     mean = torch.tensor(RGB_MEAN, dtype=torch.float32, device=dev)
     std = torch.tensor(RGB_STD, dtype=torch.float32, device=dev)
     x = views - mean if cfg.fused_input_norm else (views - mean) / std
@@ -174,11 +184,11 @@ def rollout_teacher_fused(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
         dir_feat = torch.zeros_like(dir_feat)
 
     # ---- towers, time-batched ----
-    feats = _tower_features(darknet_model, x)
+    feats = _tower_features(darknet_model, x, cfg)
     if cfg.language_only:
         feats = torch.zeros_like(feats)
     actions, pred_sal = _et_actions(vln_model, batch, cfg, feats, dir_feat,
-                                    geo["ended_pre"])
+                                    geo["ended_pre"], generator)
     actions = actions.float()
     pred_sal = pred_sal.float()
     wp_norm, alt_clip, _ = decode_action(actions.reshape(T * B, 4))
@@ -196,10 +206,13 @@ def rollout_teacher_fused(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
     # ---- losses, summed over the steps in the step loop's order ----
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     if cfg.compute_losses:
+        nss_term = torch.where(nss_valid, neg_nss, 0.0).sum(dim=1) if cfg.nss_w else None
         for t in range(T):
             ml = step_losses(actions[t, :, 0:2], actions[t, :, 2], actions[t, :, 3],
                              geo["gt_wp"][t], geo["gt_alt"][t], geo["gt_prog"][t],
                              geo["heading_eps"][t])
+            if nss_term is not None:
+                ml = ml + cfg.nss_w * nss_term[t]
             loss = loss + torch.where(geo["any_alive"][t], ml, 0.0)
 
     return RolloutOutputs(

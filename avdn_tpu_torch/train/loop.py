@@ -1,5 +1,14 @@
-"""The validation driver and its helpers (torch counterpart of
-``avdn_tpu/train/loop.py``; the train driver is ROADMAP.md queue 1 item 10).
+"""The train and validation drivers (torch counterpart of
+``avdn_tpu/train/loop.py``).
+
+``train`` mirrors the reference's training flow (src/xview_et/main.py:
+150-250): intervals of ``--log_every`` epochs over the train split, each
+followed by the checkpoint ``latest_dict_{iter}.pt``, the validation and
+``best_val_unseen.pt`` by val_unseen SPL; ``--resume_file latest`` resumes
+from the newest ``latest_dict_*``, and SIGTERM saves one and exits cleanly
+(``utils/preemption.py``). Training runs the reference numerics: fp32
+towers and the exact render unless ``--render_twopass True``; its
+validation runs the eval defaults below on the same weights.
 
 ``valid`` → ``run_validation`` → ``_eval_env`` mirror the reference's
 inference flow (src/xview_et/main.py:188-288): the student-forced nav eval
@@ -20,9 +29,11 @@ package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
+import re
 import sys
 import time
 
@@ -43,8 +54,15 @@ from avdn_tpu_torch.models.bert import BertConfig, BertLanguageEncoder
 from avdn_tpu_torch.models.darknet import Darknet, DarknetConfig
 from avdn_tpu_torch.models.et import ETConfig, HAATransformer
 from avdn_tpu_torch.sim.warp2pass import auto_render_crop
-from avdn_tpu_torch.train.step import TrainConfig, make_eval_rollout
+from avdn_tpu_torch.train import checkpoints as ckpt
+from avdn_tpu_torch.train.step import (
+    TrainConfig,
+    create_train_state,
+    make_eval_rollout,
+    make_train_step,
+)
 from avdn_tpu_torch.utils.logging import MetricWriter, PhaseTimer
+from avdn_tpu_torch.utils.preemption import PreemptionGuard
 from avdn_tpu_torch.utils.seed import set_random_seed
 from avdn_tpu_torch.viz import save_debug_overlays, save_saliency_heatmaps
 
@@ -56,6 +74,12 @@ def eval_bf16(args: Args, device: torch.device) -> bool:
     if args.bf16 is None:
         return device.type != "cpu"
     return bool(args.bf16)
+
+
+def train_bf16(args: Args) -> bool:
+    """Training computes fp32 unless ``--bf16 True`` (the reference numerics
+    by default; the bf16 recipe is opt-in, ``--preset production``)."""
+    return args.bf16 is True
 
 
 def check_supported(args: Args, device: torch.device) -> None:
@@ -85,17 +109,22 @@ def build_models(args: Args, device: torch.device, bf16: bool = False):
     else:
         dk_cfg = DarknetConfig.default(img_size=224)
     vln = HAATransformer(ETConfig(demb=args.demb, encoder_heads=args.encoder_heads,
-                                  encoder_layers=args.encoder_layers), dtype=dtype)
+                                  encoder_layers=args.encoder_layers,
+                                  dropout_transformer=args.dropout_transformer_encoder,
+                                  dropout_emb=args.dropout_emb), dtype=dtype)
     models = (BertLanguageEncoder(bert_cfg, dtype), Darknet(dk_cfg, dtype=dtype), vln)
     return tuple(m.to(device).eval() for m in models)
 
 
 @torch.no_grad()
-def init_state(models, generator: torch.Generator) -> None:
+def init_state(models, generator: torch.Generator, args: Args = None) -> None:
     """Random weights from ``generator`` (the JAX package's init scheme:
     LeCun-normal weights, zero biases, unit norms, embeddings of std
     1/√features; BatchNorm at identity statistics). Draws on the CPU so the
-    same seed gives the same weights on every device."""
+    same seed gives the same weights on every device. With ``args``, a
+    ``--bert_weight_file`` / ``--darknet_weight_file`` that exists replaces
+    the language tower's body / the vision tower (the reference's pretrained
+    init; the 49-d head stays random)."""
     for model in models:
         for mod in model.modules():
             if isinstance(mod, (nn.Linear, nn.Conv2d)):
@@ -117,6 +146,13 @@ def init_state(models, generator: torch.Generator) -> None:
                 p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
             elif name.endswith("in_proj_bias"):
                 p.zero_()
+    if args is not None:
+        if args.bert_weight_file and os.path.exists(args.bert_weight_file):
+            ckpt.import_bert_pretrain(args.bert_weight_file, models[0])
+            print(f"Loaded BERT pretrain from {args.bert_weight_file}")
+        if args.darknet_weight_file and os.path.exists(args.darknet_weight_file):
+            ckpt.import_darknet_pretrain(args.darknet_weight_file, models[1])
+            print(f"Loaded darknet pretrain from {args.darknet_weight_file}")
 
 
 def _auto_render_crop(anno_dir: str, splits) -> int:
@@ -154,27 +190,57 @@ def resolve_render_crop(args: Args) -> Args:
     return args
 
 
-def eval_config_from_args(args: Args) -> TrainConfig:
-    """The eval/serving config: the render mode is two-pass unless
-    ``--render_twopass False``, as in the JAX package's eval default (call
-    ``resolve_render_crop`` first for an auto-sized crop)."""
+def train_render_twopass(args: Args) -> bool:
+    """Training renders exact unless ``--render_twopass True``."""
+    return args.render_twopass is True
+
+
+def train_config_from_args(args: Args) -> TrainConfig:
+    """The train config of the flags (the JAX package's, field for field);
+    ``--optim`` must be ``adam`` or ``adamW``, as the reference asserts
+    (src/xview_et/agent.py:152)."""
+    if args.optim not in ("adam", "adamW"):
+        raise ValueError(
+            f"--optim {args.optim!r} is not supported: the reference asserts "
+            "optim in ('adam', 'adamW') (src/xview_et/agent.py:152) and so do we")
     return TrainConfig(
         family=args.family,
+        feedback=args.feedback,
+        lr=args.lr,
+        optim=args.optim,
+        ml_weight=args.ml_weight,
+        teacher_weight=args.teacher_weight,
+        nss_w=args.nss_w,
         nss_r=args.nss_r,
         max_action_len=args.max_action_len,
+        student_stop=0.25 if args.family == "lstm" else 0.5,
+        darknet_in_vln=args.family == "lstm",
         single_bert_pass=args.train_val_on_full,
         language_only=args.language_only,
+        vision_only=args.vision_only,
         no_direction=args.no_direction,
         render_subsample=args.render_subsample,
-        render_twopass=eval_render_twopass(args),
+        render_twopass=train_render_twopass(args),
         render_crop=args.render_crop,
         render_bf16=args.render_bf16,
         fold_bn_eval=args.fold_bn_eval,
+        grad_accum=args.grad_accum,
+        remat=args.remat,
+        remat_policy=args.remat_policy,
         fused_teacher=args.fused_teacher,
         fast_eval_trunk=args.fast_eval_trunk,
         et_decode_trunk=args.et_decode_trunk,
-        quant=args.quant,
     )
+
+
+def eval_config_from_args(args: Args) -> TrainConfig:
+    """The eval/serving config: the train config with the render mode
+    two-pass unless ``--render_twopass False``, as in the JAX package's eval
+    default (call ``resolve_render_crop`` first for an auto-sized crop), and
+    the opt-in int8 tower (``--quant``)."""
+    return dataclasses.replace(train_config_from_args(args),
+                               render_twopass=eval_render_twopass(args),
+                               quant=args.quant)
 
 
 def describe_eval_mode(cfg: TrainConfig, models) -> str:
@@ -212,8 +278,7 @@ def batcher_config(args: Args) -> BatcherConfig:
 def build_dataset(args: Args):
     """The validation envs, ``{name: ANDHDataset}`` (val_seen, val_unseen,
     and test_unseen under ``--submit``), each with the seeded shuffle of
-    ``--seed``. The train env comes with training (ROADMAP.md queue 1
-    item 10)."""
+    ``--seed`` (``train`` builds the train env the same way)."""
     names = ["val_seen", "val_unseen"] + (["test_unseen"] if args.submit else [])
     return {name: ANDHDataset(args.val_anno_dir, [name], args.batch_size,
                               seed=args.seed, full_traj=args.train_val_on_full)
@@ -399,13 +464,16 @@ def valid(args: Args, device=None):
     holds the map loading, nav-eval, HA-eval and debug-image walls."""
     device = resolve_device(device)
     check_supported(args, device)
-    if args.resume_file and (args.resume_file == "latest"
-                             or os.path.isdir(args.resume_file)):
+    if args.resume_file == "latest":
+        # the sentinel train() honours; inference has no fresh-start fallback
+        args.resume_file = _find_latest_checkpoint(args.ckpt_dir)
+        if not args.resume_file:
+            raise FileNotFoundError(f"--resume_file latest: no latest_dict_*.pt "
+                                    f"checkpoint under {args.ckpt_dir}")
+    if args.resume_file and os.path.isdir(args.resume_file):
         raise NotImplementedError(
             f"--resume_file {args.resume_file}: orbax checkpoints need the JAX "
-            "package; export them to a .pt with tools/export_torch_ckpt.py (the "
-            "port's own checkpoints come with training, ROADMAP.md queue 1 "
-            "item 10)")
+            "package; export them to a .pt with tools/export_torch_ckpt.py")
     set_random_seed(args.seed)
     _check_dataset(args, ["val_seen", "val_unseen"])
     use_fp32_numerics()
@@ -449,3 +517,210 @@ def valid(args: Args, device=None):
     writer.text(f"validation wall {time.perf_counter() - t0:.3f} s; phase timers: "
                 f"{timers.summary()}")
     return results, timers
+
+
+# ----------------------------------------------------------- train driver --
+
+_LATEST = re.compile(r"^latest_dict_(\d+)\.pt$")
+
+
+def _latest_checkpoints(ckpt_dir: str):
+    """``[(iteration, path)]`` of the ``latest_dict_{iter}.pt`` files, oldest
+    first."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    found = [(int(m.group(1)), os.path.join(ckpt_dir, name))
+             for name in os.listdir(ckpt_dir) if (m := _LATEST.match(name))]
+    return sorted(found)
+
+
+def _find_latest_checkpoint(ckpt_dir: str):
+    """The newest ``latest_dict_{iter}.pt`` by iteration, or None."""
+    found = _latest_checkpoints(ckpt_dir)
+    return found[-1][1] if found else None
+
+
+def _prune_checkpoints(ckpt_dir: str, keep: int) -> None:
+    """Keep the ``keep`` newest ``latest_dict_*.pt`` (0 = keep all, the
+    reference's behaviour); ``best_val_unseen.pt`` is never pruned."""
+    if keep <= 0:
+        return
+    for _, path in _latest_checkpoints(ckpt_dir)[:-keep]:
+        os.remove(path)
+
+
+def check_train_flags(args: Args) -> None:
+    """Raise ``NotImplementedError`` for the train flags the port cannot run
+    yet, naming their ROADMAP.md item."""
+    if args.preset == "production":
+        raise NotImplementedError(
+            "--preset production: the production train recipe (bf16 training, "
+            "dots remat, the two-pass render in training, batch 16) is ROADMAP.md "
+            "queue 1 item 10b")
+    if train_bf16(args):
+        raise NotImplementedError(
+            "--bf16 True in training: bf16 towers through flax's rounding points "
+            "under autograd are ROADMAP.md queue 1 item 10b")
+
+
+def train(args: Args, device=None):
+    """The train driver on the card, or on ``device``.
+
+    Builds the models (random init from ``--seed``, the pretrained towers
+    where ``--bert_weight_file`` / ``--darknet_weight_file`` exist), resumes
+    ``--resume_file`` (a path, or ``latest``: the newest ``latest_dict_*``
+    under ``ckpts/``, else a fresh start; the optimizer moments only with
+    ``--resume_optimizer``), then runs ``--iters`` iterations in intervals of
+    ``--log_every`` epochs: after each, ``IL_loss``, the mean grad norms
+    and ``throughput/train_eps`` go to ``logs/metrics.jsonl`` and
+    ``logs/train.txt`` with the phase timers, the state to
+    ``ckpts/latest_dict_{iter}.pt`` (``--async_ckpt``: in the background;
+    ``--ckpt_keep``: prune older ones), the validation runs and
+    ``best_val_unseen.pt`` is kept by val_unseen SPL. ``--profile_dir``
+    traces the second train step. A ``torch.Generator`` seeded with
+    ``--seed`` + 1 on the device draws the dropout masks and the loss's
+    heading jitter. Returns ``(TrainState, [per-step metrics as floats])``.
+    """
+    device = resolve_device(device)
+    check_supported(args, device)
+    check_train_flags(args)
+    set_random_seed(args.seed)
+    _check_dataset(args, ["train", "val_seen", "val_unseen"])
+    use_fp32_numerics()
+    args = resolve_render_crop(args)
+    cfg = train_config_from_args(args)
+    models = build_models(args, device)
+    init_state(models, torch.Generator().manual_seed(args.seed), args)
+    state = create_train_state(cfg, *models)
+    train_step = make_train_step(cfg, *models)
+    tokenizer = WordPieceTokenizer.load(args.bert_vocab_file)
+    bcfg = batcher_config(args)
+    bank = DeviceMapBank(args.train_dataset_dir, (args.map_bank_px, args.map_bank_px),
+                         n_slots=args.map_bank_slots, device=device)
+    writer = MetricWriter(args.log_dir, "train.txt")
+    writer.text(f"device: {device}"
+                + (f" ({torch.cuda.get_device_name(device)})"
+                   if device.type == "cuda" else ""))
+    with open(os.path.join(args.log_dir, "training_args.json"), "w") as f:
+        json.dump(vars(args), f, indent=4, default=str)
+    train_env = ANDHDataset(args.train_anno_dir, ["train"], args.batch_size,
+                            seed=args.seed, full_traj=args.train_val_on_full)
+    val_envs = build_dataset(args)
+
+    # validation runs the eval config on the same weights; bf16 eval towers
+    # (the default on the card) are separate modules that take a copy
+    ecfg = eval_config_from_args(args)
+    emodels = (build_models(args, device, bf16=True) if eval_bf16(args, device)
+               else models)
+    writer.text("validation: " + describe_eval_mode(ecfg, emodels))
+    eval_student = make_eval_rollout(ecfg, *emodels, teacher=False)
+    eval_teacher = make_eval_rollout(ecfg, *emodels, teacher=True, collect_ha=True)
+    eval_student_test = (make_eval_rollout(ecfg, *emodels, teacher=False,
+                                           compute_losses=False)
+                         if args.submit else None)
+
+    def validate(step):
+        if emodels is not models:
+            for em, m in zip(emodels, models):
+                em.load_state_dict(m.state_dict())
+        return run_validation(args, val_envs, eval_student, eval_teacher, tokenizer,
+                              bank, bcfg, writer, step, device, eval_student_test,
+                              timers=timers)
+
+    if args.resume_file == "latest":
+        args.resume_file = _find_latest_checkpoint(args.ckpt_dir)
+        writer.text(f"auto-resume: {args.resume_file or 'no checkpoint, fresh start'}")
+    if args.resume_file and os.path.isdir(args.resume_file):
+        raise NotImplementedError(
+            f"--resume_file {args.resume_file}: orbax checkpoints need the JAX "
+            "package; export them to a .pt with tools/export_torch_ckpt.py")
+    if args.resume_file:
+        ckpt.wait_for_saves()  # the file may be an in-flight async write
+        ckpt.load_checkpoint(args.resume_file, state, optimizer=args.resume_optimizer)
+        writer.text(f"\nLOAD the model from {args.resume_file}, iteration {state.step}")
+    start_iter = state.step
+
+    timers = PhaseTimer()
+    if args.eval_first:
+        validate(start_iter)
+
+    def _prepare(items):
+        """Host batch assembly, on the prefetch thread under ``--prefetch``."""
+        with timers("map_bank"):
+            bank_arr, slot_of = bank.prepare(items)
+        with timers("batch_build"):
+            batch, _ = make_train_batch(items, tokenizer, slot_of, bcfg, device=device)
+        return bank_arr, batch
+
+    def _epoch_batches():
+        if args.prefetch:
+            return Prefetcher(train_env, _prepare, depth=2)
+        return (_prepare(items) for items in train_env)
+
+    best_spl, best_line = 0.0, ""
+    interval = max(int(train_env.size() / args.batch_size), 1) * args.log_every
+    generator = torch.Generator(device).manual_seed(args.seed + 1)
+    guard = PreemptionGuard().install() if args.preempt_save else None
+    history = []
+    start = time.time()
+    interval_t0 = time.time()
+    preempted = False
+    for idx in range(start_iter, start_iter + args.iters, interval):
+        it = idx + interval
+        metrics = []
+        for _epoch in range(args.log_every):
+            for bank_arr, batch in _epoch_batches():
+                with timers("train_step"):
+                    if args.profile_dir and len(history) + len(metrics) == 1:
+                        # the second step: the first one builds the kernels
+                        with profile_trace(args.profile_dir):
+                            m = train_step(state, bank_arr, batch, generator)
+                            m = {k: float(v) for k, v in m.items()}
+                        writer.text(f"profiler trace written to {args.profile_dir}")
+                    else:
+                        m = train_step(state, bank_arr, batch, generator)
+                metrics.append(m)
+                if guard is not None and guard.triggered:
+                    preempted = True
+                    break
+            if preempted:
+                break
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+        history += metrics
+        if preempted:
+            ckpt.save_checkpoint(args.ckpt_dir, f"latest_dict_{state.step}", state)
+            ckpt.wait_for_saves()
+            writer.text(f"\npreemption signal — saved latest_dict_{state.step}, "
+                        "exiting cleanly (relaunch with --resume_file latest)")
+            break
+        il_loss = float(np.mean([m["loss"] for m in metrics]))
+        eps = len(metrics) * args.batch_size / max(time.time() - interval_t0, 1e-9)
+        writer.scalars(it, {
+            "loss/IL_loss": il_loss,
+            "grad_norm/vln": float(np.mean([m["grad_norm_vln"] for m in metrics])),
+            "grad_norm/bert": float(np.mean([m["grad_norm_bert"] for m in metrics])),
+            "throughput/train_eps": eps})
+        writer.text(f"\nIL_loss {il_loss:.4f}  ({eps:.1f} episodes/s)")
+        writer.text(f"phase timers: {timers.summary()}")
+        with timers("checkpoint"):
+            ckpt.save_checkpoint(args.ckpt_dir, f"latest_dict_{it}", state,
+                                 asynchronous=args.async_ckpt)
+            if args.ckpt_keep > 0:
+                ckpt.wait_for_saves()  # never prune an in-flight write
+                _prune_checkpoints(args.ckpt_dir, args.ckpt_keep)
+        results = validate(it)
+        if "val_unseen" in results:
+            spl = results["val_unseen"].get("spl", 0.0)
+            if spl >= best_spl:
+                best_spl, best_line = spl, f"Iter {it} spl {spl:.2f}"
+                with timers("checkpoint"):
+                    ckpt.save_checkpoint(args.ckpt_dir, "best_val_unseen", state,
+                                         asynchronous=args.async_ckpt)
+        writer.text(f"{time.time() - start:.1f}s iter {it} BEST: {best_line}")
+        # reset after the checkpoint and validation: the next interval's
+        # episodes/s covers training only
+        interval_t0 = time.time()
+    if guard is not None:
+        guard.uninstall()
+    ckpt.wait_for_saves()
+    return state, history

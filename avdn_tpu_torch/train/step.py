@@ -1,18 +1,31 @@
-"""Eval rollouts (torch counterpart of the eval half of
-``avdn_tpu/train/step.py``; the train step is not ported yet, ROADMAP.md
-queue 1 item 10).
+"""The train step and the eval rollouts (torch counterpart of
+``avdn_tpu/train/step.py``).
 
-Reference semantics (src/xview_et/agent.py:512-894): the two-pass BERT
-encode (token features from the instructions, the 49-d query from dialog +
-instructions), then a student-forced nav rollout through ``rollout.engine``
-or a teacher-forced human-attention rollout, time-fused through
+Reference semantics (src/xview_et/agent.py:208-252 and 512-894): the
+two-pass BERT encode (token features from the instructions, the 49-d query
+from dialog + instructions), then a student-forced nav rollout through
+``rollout.engine`` or a teacher-forced rollout, time-fused through
 ``rollout.fused`` by default (``--fused_teacher``).
+
+Training (``make_train_step``):
+* ``--feedback student`` runs a teacher-forced pass with the NSS weight 0
+  and a student-forced pass with ``nss_w``, one backward over
+  ``ml_weight·(L_t + L_s)/B`` (agent.py:226-235); ``--feedback teacher``
+  one teacher pass, ``teacher_weight·L/B``;
+* three optimizers (language tower, vision tower, VLN model), all Adam or
+  AdamW at the same lr with torch's defaults (``train/optim.py``, optax's
+  update order); the global-norm clip at 40 on the VLN group only
+  (agent.py:247), on the vision tower too under ``darknet_in_vln``;
+* dropout from the step's ``torch.Generator`` and BatchNorm on batch
+  statistics, the simulator feedback detached (``rollout/engine.py``);
+* ``--grad_accum K``: K micro-batches, each loss divided by the full B,
+  gradients summed, the BatchNorm running statistics chained.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -27,6 +40,7 @@ from avdn_tpu_torch.rollout.engine import (
     rollout,
 )
 from avdn_tpu_torch.rollout.fused import rollout_teacher_fused
+from avdn_tpu_torch.train.optim import Adam, global_norm
 
 
 @dataclasses.dataclass
@@ -40,30 +54,47 @@ class TrainBatch:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The eval-side fields of the JAX ``TrainConfig``: what the eval
-    rollouts read (the optimizer, loss-weight and remat fields come with
-    training, ROADMAP.md queue 1 item 10)."""
+    """The JAX package's ``TrainConfig`` (``avdn_tpu/train/step.py:53-108``),
+    field for field."""
 
-    family: str = "et"
+    family: str = "et"             # "et" | "lstm"
+    feedback: str = "student"      # "student" (double rollout) | "teacher"
+    lr: float = 1e-5
+    optim: str = "adamW"           # "adam" | "adamW"
+    weight_decay: Optional[float] = None  # None → torch default per optim
+    ml_weight: float = 0.2
+    teacher_weight: float = 1.0
+    nss_w: float = 0.1
     nss_r: int = 0
     max_action_len: int = 10
+    student_stop: float = 0.5      # 0.25 for the LSTM family
+    grad_clip_vln: float = 40.0
+    darknet_in_vln: bool = False   # True for LSTM (clip + step with vln group)
     single_bert_pass: bool = False  # --train_val_on_full mode skips pass 2
+    grad_accum: int = 1            # micro-batch count for large global batches
     language_only: bool = False
+    vision_only: bool = False
     no_direction: bool = False
     render_subsample: int = 1      # >1: low-res gather + upscale (opt-in)
     render_twopass: bool = False   # full-res two-pass warp
     render_crop: int = 512         # two-pass source window, px
     render_bf16: bool = True       # bf16 two-pass weights (fp32 on the CPU)
     fold_bn_eval: bool = True      # fold BN + input norm into eval conv weights
+    remat: bool = False            # rematerialise steps under AD (ROADMAP 10b)
+    remat_policy: str = "full"     # "full" | "dots"
     fused_teacher: bool = True
     fast_eval_trunk: bool = True
     et_decode_trunk: bool = False  # incremental eval-loop trunk decode (opt-in)
     quant: str = "none"            # "none" | "int8" eval/serving tower (opt-in)
 
-    def rollout_cfg(self, teacher: bool, **kw) -> RolloutConfig:
+    def rollout_cfg(self, teacher: bool, nss_w: float = 0.0, train: bool = False,
+                    **kw) -> RolloutConfig:
         return RolloutConfig(
             max_action_len=self.max_action_len,
             teacher_forcing=teacher,
+            stop_threshold=self.student_stop,
+            train=train,
+            nss_w=nss_w,
             nss_r=self.nss_r,
             language_only=self.language_only,
             no_direction=self.no_direction,
@@ -78,13 +109,14 @@ class TrainConfig:
         )
 
 
-def _encode_language(bert_model, batch: TrainBatch, cfg: TrainConfig):
+def _encode_language(bert_model, batch: TrainBatch, cfg: TrainConfig,
+                     generator: Optional[torch.Generator] = None):
     """The reference's two-pass BERT quirk (agent.py:521-538): token features
     from the instructions-only pass; the 49-d head query from the
-    full-dialog pass."""
-    lang_feat, lang_cls, _ = bert_model(batch.ids_instr, batch.mask_instr)
+    full-dialog pass. ``generator`` draws the dropout masks in train mode."""
+    lang_feat, lang_cls, _ = bert_model(batch.ids_instr, batch.mask_instr, generator)
     if not cfg.single_bert_pass:
-        _, lang_cls, _ = bert_model(batch.ids_dialog, batch.mask_dialog)
+        _, lang_cls, _ = bert_model(batch.ids_dialog, batch.mask_dialog, generator)
     return lang_feat, lang_cls
 
 
@@ -101,7 +133,7 @@ def _run_family_rollout(cfg: TrainConfig, roll_cfg: RolloutConfig, models,
         return rollout_teacher_fused(map_bank=map_bank, batch=ep, cfg=roll_cfg,
                                      family=cfg.family, darknet_model=darknet_model,
                                      vln_model=vln_model, generator=generator)
-    step, init_state = make_et_step(darknet_model, vln_model, ep, roll_cfg)
+    step, init_state = make_et_step(darknet_model, vln_model, ep, roll_cfg, generator)
     init = init_state(output_channels(darknet_model.cfg)[-1], 49)
     out, _ = rollout(map_bank=map_bank, batch=ep, cfg=roll_cfg, model_step=step,
                      init_model_state=init, generator=generator)
@@ -113,6 +145,150 @@ def check_rollout_supported(cfg: TrainConfig) -> None:
     if cfg.family != "et":
         raise NotImplementedError(
             f"--family {cfg.family}: the LSTM family is ROADMAP.md queue 1 item 11")
+
+
+def check_train_supported(cfg: TrainConfig) -> None:
+    """Raise for a train config the port cannot run yet, naming its ROADMAP
+    item (``--bf16 True`` training is refused where the towers are built,
+    ``train/loop.py:train_bf16``)."""
+    check_rollout_supported(cfg)
+    if cfg.remat:
+        raise NotImplementedError(
+            "--remat: rematerialised training (torch.utils.checkpoint with the "
+            "render saved) is ROADMAP.md queue 1 item 10b")
+    if cfg.feedback not in ("student", "teacher"):
+        raise ValueError(f"--feedback {cfg.feedback!r}: choose 'student' or 'teacher'")
+    if cfg.grad_accum < 1:
+        raise ValueError(f"--grad_accum {cfg.grad_accum} must be at least 1")
+
+
+# ------------------------------------------------------------- training --
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The three modules (parameters and BatchNorm running statistics), their
+    three optimizers and the step count."""
+
+    bert: torch.nn.Module
+    darknet: torch.nn.Module
+    vln: torch.nn.Module
+    opt_bert: Adam
+    opt_darknet: Adam
+    opt_vln: Adam
+    step: int = 0
+
+    def models(self):
+        return self.bert, self.darknet, self.vln
+
+    def optimizers(self):
+        return self.opt_bert, self.opt_darknet, self.opt_vln
+
+
+def _make_optimizer(cfg: TrainConfig, module: torch.nn.Module, with_clip: bool) -> Adam:
+    """Adam or AdamW at ``cfg.lr`` (b1 0.9, b2 0.999, eps 1e-8, AdamW's
+    weight decay 0.01 unless set), after a global-norm clip at
+    ``cfg.grad_clip_vln`` with ``with_clip``."""
+    if cfg.optim == "adamW":
+        wd = 0.01 if cfg.weight_decay is None else cfg.weight_decay
+    elif cfg.optim == "adam":
+        wd = 0.0
+    else:
+        raise ValueError(cfg.optim)
+    return Adam(module.named_parameters(), cfg.lr, b1=0.9, b2=0.999, eps=1e-8,
+                weight_decay=wd, clip=cfg.grad_clip_vln if with_clip else None)
+
+
+def create_train_state(cfg: TrainConfig, bert, darknet, vln) -> TrainState:
+    """A fresh train state over the modules' current weights."""
+    return TrainState(bert=bert, darknet=darknet, vln=vln,
+                      opt_bert=_make_optimizer(cfg, bert, with_clip=False),
+                      opt_darknet=_make_optimizer(cfg, darknet,
+                                                  with_clip=cfg.darknet_in_vln),
+                      opt_vln=_make_optimizer(cfg, vln, with_clip=True))
+
+
+def _micro_batch(batch: TrainBatch, k: int, K: int) -> TrainBatch:
+    """Micro-batch ``k`` of ``K``: every per-item tensor's k-th slice of the
+    episode dimension."""
+    def cut(x):
+        m = x.shape[0] // K
+        return x[k * m:(k + 1) * m]
+
+    ep = dataclasses.replace(batch.episode, **{
+        f.name: cut(getattr(batch.episode, f.name))
+        for f in dataclasses.fields(batch.episode)})
+    return TrainBatch(episode=ep, ids_instr=cut(batch.ids_instr),
+                      mask_instr=cut(batch.mask_instr),
+                      ids_dialog=cut(batch.ids_dialog),
+                      mask_dialog=cut(batch.mask_dialog))
+
+
+def make_loss_fn(cfg: TrainConfig, bert_model, darknet_model, vln_model) -> Callable:
+    """``loss_fn(batch, map_bank, generator, loss_norm) -> loss``: the train
+    loss of ``batch`` under autograd (the JAX ``make_train_step.loss_fn``),
+    divided by ``loss_norm`` (the full batch size)."""
+    models = (darknet_model, vln_model)
+
+    def loss_fn(batch: TrainBatch, map_bank, generator, loss_norm: int):
+        bert_out = _encode_language(bert_model, batch, cfg, generator)
+        if cfg.feedback == "teacher":
+            roll = cfg.rollout_cfg(teacher=True, nss_w=cfg.nss_w, train=True)
+            out = _run_family_rollout(cfg, roll, models, bert_out, batch, map_bank,
+                                      generator)
+            return cfg.teacher_weight * out.loss / loss_norm
+        # teacher-forced pass with nss off, then student-forced with nss
+        # (agent.py:231-235)
+        out_t = _run_family_rollout(
+            cfg, cfg.rollout_cfg(teacher=True, nss_w=0.0, train=True), models,
+            bert_out, batch, map_bank, generator)
+        out_s = _run_family_rollout(
+            cfg, cfg.rollout_cfg(teacher=False, nss_w=cfg.nss_w, train=True), models,
+            bert_out, batch, map_bank, generator)
+        return cfg.ml_weight * (out_t.loss + out_s.loss) / loss_norm
+
+    return loss_fn
+
+
+def make_train_step(cfg: TrainConfig, bert_model, darknet_model, vln_model) -> Callable:
+    """Build ``train_step(state, map_bank, batch, generator) -> metrics``:
+    one optimizer step of ``state`` (in place; ``state.step`` += 1) on
+    ``batch``. ``generator`` (on the batch's device) draws the dropout masks
+    and the loss's heading jitter. Returns ``{"loss", "grad_norm_vln",
+    "grad_norm_bert"}`` as 0-d tensors on the device (no host sync); the
+    grad norms are taken before the clip."""
+    check_train_supported(cfg)
+    use_fp32_numerics()
+    loss_fn = make_loss_fn(cfg, bert_model, darknet_model, vln_model)
+
+    def train_step(state: TrainState, map_bank, batch: TrainBatch,
+                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        for m in state.models():
+            m.train()
+            m.zero_grad(set_to_none=True)
+        K = cfg.grad_accum
+        full_B = batch.ids_instr.shape[0]
+        if full_B % K != 0:
+            raise ValueError(f"--grad_accum {K} must evenly divide batch_size {full_B}")
+        loss = torch.zeros((), device=batch.ids_instr.device)
+        for k in range(K):
+            # each micro loss over the FULL batch size: the summed grads are
+            # the full batch's; BatchNorm's running statistics chain in order
+            mb = batch if K == 1 else _micro_batch(batch, k, K)
+            micro = loss_fn(mb, map_bank, generator, full_B)
+            micro.backward()
+            loss = loss + micro.detach()
+        grads = [[torch.zeros_like(p) if p.grad is None else p.grad
+                  for p in opt.params] for opt in state.optimizers()]
+        norms = [global_norm(g) for g in grads]
+        for opt, g, norm in zip(state.optimizers(), grads, norms):
+            opt.step(g, norm)
+        for m in state.models():
+            m.zero_grad(set_to_none=True)
+        state.step += 1
+        return {"loss": loss, "grad_norm_vln": norms[2], "grad_norm_bert": norms[0]}
+
+    return train_step
 
 
 def make_eval_rollout(cfg: TrainConfig, bert_model, darknet_model, vln_model,

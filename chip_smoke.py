@@ -11,9 +11,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes (the fused saliency kernel: B = 8 and 16,
              the per-step batches, and 80 and 240, T·B of the fused teacher
-             path; each nss_r; repeated launches bitwise equal), with device
-             times from torch.profiler, cold (held against the HBM byte
-             bound) and hot in L2.
+             path; each nss_r; repeated launches bitwise equal; its backward
+             kernel of −NSS, ``grad_kernel``, at N = 8, 80 and 240 against
+             autograd of the plain version, with an empty-ground-truth and a
+             constant-prediction item), with device times from
+             torch.profiler, cold (held against the HBM byte bound) and hot
+             in L2.
 4. slice   — the ET-HAA inference path at full width (BERT-base 12×768,
              Darknet-53 at 224 px, HAA trunk 2×768, T = 10, a 4096 px
              8-slot map bank), fp32 and the exact render, random weights
@@ -37,6 +40,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
              int8``, ``--et_decode_trunk True``) one batch each, the fp32
              decode trunk is held against the full re-encode, and
              ``valid()`` runs as ``--inference True`` with its debug images.
+6b. train  — the port's train CLI at full width (B = 8, T = 10, no preset:
+             fp32, the exact render, student feedback, the fused teacher,
+             AdamW) from the seed's random init on the phase-5 dataset's
+             train split: one interval of 3 steps with its checkpoint and
+             validation, then ``--resume_file latest`` and 3 more steps
+             (the loop runs whole epochs); finite losses and grad norms,
+             the checkpoints loadable by ``valid()``, the saliency
+             launches per step (forward T + 1, backward T), the median step
+             wall, peak memory and one profiled step (idle share, top
+             kernels). Then one train step at tiny width, dropout 0, on the
+             card and on the CPU: loss and grad norms within 1e-4.
 7. render  — the two-pass render fp32 on the card against the CPU (B = 2),
              bf16 against fp32 weights (B = 8), and the per-call time of the
              exact and two-pass renders at B = 8 and N = 80.
@@ -202,13 +216,14 @@ def make_maps(device):
     return [m.permute(1, 2, 0).contiguous().cpu().numpy() for m in maps]
 
 
-def make_items():
+def make_items(seed=SEED + 2, prefix=""):
     """N_ITEMS ANDH-format items (the fields of avdn_tpu/data/demo.py) over
     the N_MAPS maps: view edges of 40–400 m, 2–5 step GT paths, 1–3
-    attention circles, one or two dialog rounds."""
+    attention circles, one or two dialog rounds; ``prefix`` starts each
+    route index."""
     import numpy as np
 
-    rng = np.random.default_rng(SEED + 2)
+    rng = np.random.default_rng(seed)
     extent = MAP_PX * LAT_RATIO
     items = []
     for i in range(N_ITEMS):
@@ -238,7 +253,7 @@ def make_items():
             pre.append("[QUE] am i close yet? [INS] keep going past the lot.")
         items.append({
             "map_name": f"smoke_map_{k}",
-            "route_index": f"{i}_1",
+            "route_index": f"{prefix}{i}_1",
             "angle": heading + rng.uniform(-0.4, 0.4),
             "gt_path_corners": path,
             "instructions": f"Fly toward the gray building number {i} [SEP]",
@@ -488,10 +503,11 @@ def phase_slice(card, device="cuda", extra_args=()):
     log(f"[slice] fused vs step HA eval: stops identical, max diff {err} "
         "(actions, corners, HA), HA metrics within 1e-4")
     return nav, norm, maps, launches
-def write_dataset(root, maps, items):
+def write_dataset(root, maps, items, train_items):
     """The smoke items as an ANDH dataset: ``val_seen`` (the first 16
-    items), ``val_unseen`` (the other 8) and the maps as .tif files (BGR, as
-    OpenCV writes and the bank decodes them)."""
+    items), ``val_unseen`` (the other 8), ``train`` (24 more items of the
+    same kind over the same maps) and the maps as .tif files (BGR, as OpenCV
+    writes and the bank decodes them)."""
     import cv2
 
     anno = os.path.join(root, "AVDN", "annotations")
@@ -501,7 +517,8 @@ def write_dataset(root, maps, items):
     for k, m in enumerate(maps):
         if not cv2.imwrite(os.path.join(img, f"smoke_map_{k}.tif"), m[:, :, ::-1]):
             fail(f"could not write smoke_map_{k}.tif")
-    for split, part in (("val_seen", items[:16]), ("val_unseen", items[16:])):
+    for split, part in (("val_seen", items[:16]), ("val_unseen", items[16:]),
+                        ("train", train_items)):
         with open(os.path.join(anno, f"{split}_data.json"), "w") as f:
             json.dump(part, f)
 
@@ -541,7 +558,8 @@ def phase_valid(card, nav, maps, device="cuda", extra_args=(), defaults=False):
     tag = "[defaults]" if defaults else "[valid]"
     if not defaults:
         t0 = time.perf_counter()
-        write_dataset(os.path.join(root, "data"), maps, make_items())
+        write_dataset(os.path.join(root, "data"), maps, make_items(),
+                      make_items(SEED + 3, prefix="t"))
         save_agent(nav, pt)
         log(f"[valid] dataset and checkpoint written in {time.perf_counter() - t0:.3f} s")
     args = build_args(os.path.join(root, "out_defaults" if defaults else "out"), [
@@ -994,6 +1012,296 @@ def phase_profile(nav, items, card):
         time_layers(layers, card, "[profile]", B)
 
 
+GRAD_BATCHES = (SERVE_BATCH, T_STEPS * SERVE_BATCH, 15 * 16)
+#: a two-conv Darknet for the card-vs-CPU train step (the 224 px input to a
+#: (32, 7, 7) feature map, as the full tower's (512, 7, 7))
+TINY_DARKNET_CFG = """
+[net]
+channels=3
+height=224
+width=224
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=8
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=4
+pad=1
+activation=leaky
+"""
+
+
+def phase_grad_kernel(card):
+    """The backward kernel of −NSS (``csrc/saliency_nss_grad.cu``) against
+    autograd of the plain version on the card, at N = 8 (a student step),
+    80 (the fused teacher's T·B) and 240, for each nss_r, on maps with an
+    empty ground truth (item 2) and a constant prediction (item 1, std = 0),
+    through the loss's ``where(valid, −NSS, 0)`` with random item weights:
+    max abs error over max |grad| within 1e-5, exactly 0 on the invalid
+    items, one forward and one backward launch per autograd pass. Then its
+    device time, cold (cycling input copies past the L2) against the HBM
+    byte bound (12 bytes a pixel: p and g read, dL/dp written) and hot, and
+    the plain version's."""
+    import torch
+
+    from avdn_tpu_torch.ops.saliency import (saliency_fused, saliency_nss_grad,
+                                             saliency_nss_grad_plain,
+                                             saliency_reductions, saliency_stats)
+
+    rec = {}
+    for N in GRAD_BATCHES:
+        pred, gt = saliency_inputs(N, "cuda")
+        g = torch.Generator(device="cpu").manual_seed(SEED + 7 * N)
+        weight = (0.5 + torch.rand(N, generator=g)).cuda()
+        err = 0.0
+        for nss_r in (0, 1, -1):
+            p = pred.clone().requires_grad_(True)
+            fwd, bwd = saliency_stats.launches, saliency_nss_grad.launches
+            neg, valid, _, _ = saliency_reductions(p, gt, nss_r)
+            (weight * torch.where(valid, neg, 0.0)).sum().backward()
+            torch.cuda.synchronize()
+            if (saliency_stats.launches - fwd, saliency_nss_grad.launches - bwd) != (1, 1):
+                fail(f"grad kernel N={N}: {saliency_stats.launches - fwd} forward and "
+                     f"{saliency_nss_grad.launches - bwd} backward launches, expected 1, 1")
+            want = saliency_nss_grad_plain(pred, gt, weight * valid, nss_r)
+            scale = want.abs().max().item()
+            e = (p.grad - want).abs().max().item() / scale
+            if not (torch.isfinite(p.grad).all() and e <= 1e-5):
+                fail(f"grad kernel N={N} nss_r={nss_r}: max abs err / max |grad| {e}")
+            if p.grad[1].abs().max().item() != 0 or p.grad[2].abs().max().item() != 0:
+                fail(f"grad kernel N={N} nss_r={nss_r}: nonzero gradient on the "
+                     "std = 0 or Σg = 0 item")
+            err = max(err, e)
+        stats, neg, valid, _, _ = saliency_fused(pred, gt, 0)
+        up = (weight * valid).contiguous()
+        set_bytes = 2 * pred.numel() * 4
+        n_copies = -(-COLD_BYTES // set_bytes)
+        copies = [(pred.clone(), gt.clone()) for _ in range(n_copies)]
+        turn = itertools.cycle(copies)
+        hot_ms = kernel_time_ms(lambda: saliency_nss_grad(pred, gt, stats, up))
+        cold_ms = kernel_time_ms(lambda: saliency_nss_grad(*next(turn), stats, up))
+        plain = device_time_ms(lambda: saliency_nss_grad_plain(pred, gt, up))
+        if plain is None:
+            fail("torch.profiler recorded no kernel of the plain gradient")
+        del copies, turn
+        bytes_moved = 12 * pred.numel() + N * 36  # p, g in; dL/dp out; stats row, u
+        flops = 5 * pred.numel()
+        bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / 67e12) * 1e3
+        log(f"[grad_kernel] N={N}: max_abs_err/max|grad| {err} | device time cold "
+            f"{cold_ms * 1e3} us ({n_copies} input copies), bound {bound_ms * 1e3} us "
+            f"(bytes, HBM), share of bound (bound/cold) {bound_ms / cold_ms:.3f} | hot "
+            f"(L2) {hot_ms * 1e3} us | plain (autograd of the plain reductions) "
+            f"{plain[0] * 1e3} us in {plain[1]:g} kernels | {card}")
+        rec[N] = dict(max_abs_err=err, ms=cold_ms, hot_ms=hot_ms, plain_ms=plain[0],
+                      bound_ms=bound_ms)
+    return rec
+
+
+TRAIN_ROOT = os.path.join(ROOT, "build", "chip_smoke_train")
+
+
+def phase_train(card, device="cuda", extra_args=()):
+    """The port's train CLI (``python -m avdn_tpu_torch.cli.train_et`` with no
+    preset: fp32 towers, the exact render, ``--feedback student``, the fused
+    teacher, AdamW) on the phase-5 dataset's train split, from the seed's
+    random init, at full width, B = 8, T = 10: one interval of 3 steps
+    (``--iters 3 --log_every 1`` over 24 items), its checkpoint and the
+    validation (the eval defaults); then ``--resume_file latest`` and one
+    more interval. Checks every loss and grad norm finite, the checkpoints
+    written and loadable into ``valid()``'s models, the resume's steps; on
+    the card the launches of the forward and backward saliency kernels per
+    train step, and reports the median step wall (unprofiled steps), the
+    peak memory, and one step under torch.profiler (device idle share, top
+    kernels). Returns ``({path: forward launches}, {path: backward
+    launches}, summary)``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import avdn_tpu_torch.train.loop as loop
+    from avdn_tpu_torch.cli.train_et import main as cli_main
+    from avdn_tpu_torch.compat.from_jax import load_agent_weights, load_reference_agent
+    from avdn_tpu_torch.ops.saliency import saliency_nss_grad, saliency_stats
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = torch.device(device).type == "cuda"
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    steps = []  # per step: wall, forward and backward launches, profiled or not
+    real = loop.make_train_step
+
+    def make_observed_step(*a, **kw):
+        step = real(*a, **kw)
+
+        def observed(*sa, **skw):
+            sync(device)
+            fwd, bwd = saliency_stats.launches, saliency_nss_grad.launches
+            profiled = on_card and len(steps) == 4  # the resume run's second
+            t0 = time.perf_counter()
+            if profiled:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = step(*sa, **skw)
+                    sync(device)
+                steps.append(dict(prof=prof))
+            else:
+                out = step(*sa, **skw)
+                sync(device)
+                steps.append({})
+            steps[-1].update(wall=time.perf_counter() - t0,
+                             fwd=saliency_stats.launches - fwd,
+                             bwd=saliency_nss_grad.launches - bwd)
+            return out
+
+        return observed
+
+    base = ["--root_dir", os.path.join(VALID_ROOT, "data"),
+            "--output_dir", os.path.join(TRAIN_ROOT, "out"), "--seed", str(SEED),
+            "--max_action_len", str(T_STEPS), "--batch_size", str(SERVE_BATCH),
+            "--iters", "3", "--log_every", "1", *extra_args]
+    fwd_by_path, bwd_by_path, histories = {}, {}, []
+    loop.make_train_step = make_observed_step
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        for name, extra in (("train", []), ("train_resume", ["--resume_file", "latest"])):
+            saliency_stats.launches = saliency_nss_grad.launches = 0
+            t0 = time.perf_counter()
+            state, history = cli_main(base + extra, device=device)
+            sync(device)
+            wall = time.perf_counter() - t0
+            fwd_by_path[name] = saliency_stats.launches
+            bwd_by_path[name] = saliency_nss_grad.launches
+            histories += history
+            log(f"[train] {name}: {len(history)} steps to step {state.step} in "
+                f"{wall:.3f} s (with the checkpoint and the validation), saliency "
+                f"launches forward {fwd_by_path[name]} backward {bwd_by_path[name]} | "
+                f"{card}")
+    finally:
+        loop.make_train_step = real
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+
+    if state.step != 6 or len(histories) != 6:
+        fail(f"[train] ended at step {state.step} after {len(histories)} steps, "
+             "expected 6 (3, then 3 more after the resume)")
+    for i, m in enumerate(histories):
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"[train] step {i + 1}: non-finite {m}")
+    ckpt_dir = os.path.join(TRAIN_ROOT, "out", "ckpts")
+    names = sorted(os.listdir(ckpt_dir))
+    if names != ["best_val_unseen.pt", "latest_dict_3.pt", "latest_dict_6.pt"]:
+        fail(f"[train] checkpoints written: {names}")
+    args = build_args(os.path.join(TRAIN_ROOT, "load"), extra_args)
+    for name in ("latest_dict_6.pt", "best_val_unseen.pt"):
+        load_agent_weights(loop.build_models(args, torch.device(device)),
+                           load_reference_agent(os.path.join(ckpt_dir, name)))
+    with open(os.path.join(TRAIN_ROOT, "out", "logs", "train.txt")) as f:
+        resumed = "latest_dict_3.pt, iteration 3" in f.read()
+    if not resumed:
+        fail("[train] the resume run did not load latest_dict_3.pt")
+    if on_card:
+        # per step: T forward launches in the student pass and one at T·B in
+        # the fused teacher pass; backward only where the loss holds −NSS,
+        # the student pass (the teacher pass runs with nss_w = 0)
+        for i, st in enumerate(steps):
+            if (st["fwd"], st["bwd"]) != (T_STEPS + 1, T_STEPS):
+                fail(f"[train] step {i + 1}: saliency launches forward {st['fwd']} "
+                     f"backward {st['bwd']}, expected {T_STEPS + 1}, {T_STEPS}")
+    for i, (st, m) in enumerate(zip(steps, histories)):
+        log(f"[train] step {i + 1}: wall {st['wall'] * 1e3:.1f} ms"
+            f"{' (profiled)' if 'prof' in st else ''}, loss {m['loss']:.6f}, grad norm "
+            f"vln {m['grad_norm_vln']:.6f} bert {m['grad_norm_bert']:.6f}, saliency "
+            f"launches forward {st['fwd']} backward {st['bwd']}")
+    walls = [st["wall"] for st in steps if "prof" not in st]
+    summary = dict(step_wall_ms_median=statistics.median(walls) * 1e3,
+                   peak_gb=peak_gb, steps=len(steps))
+    if on_card:
+        prof_step = next(st for st in steps if "prof" in st)
+        kernels = kernel_events(prof_step["prof"])
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        summary.update(profiled_wall_ms=prof_step["wall"] * 1e3, busy_ms=busy_ms,
+                       idle=1 - busy_ms / (summary["step_wall_ms_median"]))
+        log(f"[train] median step wall {summary['step_wall_ms_median']:.1f} ms over "
+            f"{len(walls)} unprofiled steps (the first builds and tunes); profiled step: "
+            f"kernels {busy_ms:.3f} ms in {sum(e.count for e in kernels)} launches, "
+            f"device idle {summary['idle']:.3f} of the median wall; peak memory "
+            f"{peak_gb:.2f} GiB (max_memory_allocated) | {card}")
+        for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:12]:
+            log(f"[train]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+                f"{e.key[:90]}")
+    return fwd_by_path, bwd_by_path, summary
+
+
+def phase_train_parity(card, devices=("cuda", "cpu")):
+    """One train step's loss and gradients at tiny width (BERT 2×64, the
+    tiny Darknet, trunk 1×64, B = 2, T = 3, every dropout rate 0, TF32 off)
+    on the card and on the CPU (plain versions) from the same weights and
+    batch: the loss and the three groups' grad norms within 1e-4 relative."""
+    import torch
+
+    from avdn_tpu_torch.data.batcher import make_train_batch
+    from avdn_tpu_torch.data.maps import DeviceMapBank
+    from avdn_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from avdn_tpu_torch.device import use_fp32_numerics
+    from avdn_tpu_torch.models.layers import Dropout
+    from avdn_tpu_torch.serve import Navigator
+    from avdn_tpu_torch.train.loop import (batcher_config, build_models, init_state,
+                                           train_config_from_args)
+    from avdn_tpu_torch.train.optim import global_norm
+    from avdn_tpu_torch.train.step import make_loss_fn
+
+    cfg_path = os.path.join(TRAIN_ROOT, "tiny_darknet.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(TINY_DARKNET_CFG)
+    args = build_args(os.path.join(TRAIN_ROOT, "parity"), [
+        "--root_dir", os.path.join(VALID_ROOT, "data"), "--demb", "64",
+        "--bert_layers", "2", "--encoder_heads", "4", "--encoder_layers", "1",
+        "--darknet_model_file", cfg_path, "--max_instr_len", "32",
+        "--dialog_pad", "64", "--max_action_len", "3", "--batch_size", "2",
+        "--map_bank_slots", "2"])
+    use_fp32_numerics()
+    with open(os.path.join(args.train_anno_dir, "train_data.json")) as f:
+        items = [Navigator._normalize_item(it) for it in json.load(f)[:2]]
+    cfg = train_config_from_args(args)
+    res = {}
+    for device in devices:
+        models = build_models(args, torch.device(device))
+        init_state(models, torch.Generator().manual_seed(SEED))
+        for m in models:
+            for mod in m.modules():
+                if isinstance(mod, Dropout):
+                    mod.p = 0.0
+            m.train()
+        bank = DeviceMapBank(args.train_dataset_dir, (args.map_bank_px,) * 2,
+                             n_slots=args.map_bank_slots, device=device)
+        arr, slots = bank.prepare(items)
+        batch, _ = make_train_batch(items, WordPieceTokenizer.load(None), slots,
+                                    batcher_config(args), device=device)
+        t0 = time.perf_counter()
+        loss = make_loss_fn(cfg, *models)(batch, arr,
+                                          torch.Generator(device).manual_seed(SEED), 2)
+        loss.backward()
+        res[device] = [float(loss.detach())] + [
+            float(global_norm([torch.zeros_like(p) if p.grad is None else p.grad
+                               for p in m.parameters()])) for m in models]
+        log(f"[train_parity] {device}: loss {res[device][0]!r}, grad norms bert "
+            f"{res[device][1]!r} darknet {res[device][2]!r} vln {res[device][3]!r} "
+            f"({time.perf_counter() - t0:.3f} s)")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res[devices[0]], res[devices[1]]))
+    if not rel <= 1e-4:
+        fail(f"[train_parity] card vs CPU: loss / grad norms differ by {rel} relative")
+    log(f"[train_parity] card vs CPU one train step at tiny width, dropout 0, TF32 "
+        f"off: loss and grad norms within {rel:.3e} relative | {card}")
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     try:
@@ -1014,6 +1322,7 @@ def main() -> None:
     phase_build()
     done("device + build")
     krec = phase_kernels(card)
+    grec = phase_grad_kernel(card)
     done("kernels")
     nav, items, maps, launches = phase_slice(card)
     done("slice")
@@ -1023,6 +1332,11 @@ def main() -> None:
     launches.update(got)
     launches["defaults_valid"] = phase_valid(card, nav, maps, defaults=True)
     done("defaults")
+    train_fwd, train_bwd, train_summary = phase_train(card)
+    launches.update(train_fwd)
+    done("train")
+    phase_train_parity(card)
+    done("train parity")
     phase_render(card, nav_def, chunks)
     done("render")
     phase_parity(nav, items)
@@ -1036,6 +1350,7 @@ def main() -> None:
     import torch
 
     k = krec[SERVE_BATCH]
+    g = grec[SERVE_BATCH]
     kernels = {"kernels": [{
         "name": "saliency_stats",
         "route": "cuda",
@@ -1051,6 +1366,24 @@ def main() -> None:
         "library_ms": None,
         "shape": [SERVE_BATCH, 224, 224],
         "by_batch": {str(B): r for B, r in krec.items()},
+    }, {
+        "name": "saliency_nss_grad",
+        "route": "cuda",
+        "source": "avdn_tpu_torch/csrc/saliency_nss_grad.cu",
+        "replaces": ("avdn_tpu/rollout/engine.py:285 (XLA autodiff of "
+                     "avdn_tpu/ops/saliency_pallas.py:saliency_stats_xla and the "
+                     "saliency_reductions tail, the train path; no Pallas kernel)"),
+        "launches": sum(train_bwd.values()),
+        "launches_by_path": train_bwd,
+        "max_abs_err": max(r["max_abs_err"] for r in grec.values()),
+        "ms": g["ms"],
+        "plain_ms": g["plain_ms"],
+        "bound_ms": g["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": [SERVE_BATCH, 224, 224],
+        "by_batch": {str(N): r for N, r in grec.items()},
+        "train_step": train_summary,
     }]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

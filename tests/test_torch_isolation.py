@@ -6,8 +6,10 @@
 * Without a card, an entry point given no ``device`` raises instead of
   running on the CPU, and ``chip_smoke.py`` exits non-zero without a result.
 * Every eval mode of the JAX package is accepted (the shipped defaults and
-  the opt-in modes); flags the port cannot run yet (the LSTM family,
-  multi-process runs) raise ``NotImplementedError``.
+  the opt-in modes), and training at the reference configuration; flags the
+  port cannot run yet (the LSTM family, multi-process runs, the production
+  train recipe: bf16 training, remat, ``--preset production``) raise
+  ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 import os
@@ -43,9 +45,10 @@ def test_import_loads_no_jax_or_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     modules = json.loads(proc.stdout.strip().splitlines()[-1])
-    for name in ("serve", "train.loop", "rollout.fused", "models.et_fast",
-                 "data.annotations", "utils.logging", "utils.seed", "viz",
-                 "cli.main", "cli.train_et"):
+    for name in ("serve", "train.loop", "train.step", "train.optim",
+                 "train.checkpoints", "utils.preemption", "rollout.fused",
+                 "models.et_fast", "data.annotations", "utils.logging",
+                 "utils.seed", "viz", "cli.main", "cli.train_et"):
         assert "avdn_tpu_torch." + name in modules
     assert [m for m in modules if _forbidden(m)] == []
 
@@ -72,7 +75,7 @@ def test_entry_points_without_card_raise(tmp_path):
     from avdn_tpu_torch.data.maps import DeviceMapBank
     from avdn_tpu_torch.cli.train_et import main as cli_main
     from avdn_tpu_torch.serve import Navigator
-    from avdn_tpu_torch.train.loop import valid
+    from avdn_tpu_torch.train.loop import train, valid
 
     args = postprocess_args(Args(output_dir=str(tmp_path), render_twopass=False,
                                  bf16=False))
@@ -83,8 +86,12 @@ def test_entry_points_without_card_raise(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         valid(args)
     with pytest.raises(RuntimeError, match="CUDA"):
+        train(args, device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
         cli_main(["--output_dir", str(tmp_path), "--inference", "True",
                   "--render_twopass", "False", "--bf16", "False"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_main(["--output_dir", str(tmp_path)])
 
 
 def test_chip_smoke_fails_without_card_or_package(tmp_path):
@@ -164,7 +171,8 @@ def test_eval_mode_flags_supported(case, tmp_path):
 
 def test_fused_teacher_rollout_raises(tmp_path):
     """The fused teacher path runs in eval mode (the default for the HA
-    eval); its train mode and the LSTM family raise, naming their items."""
+    eval) and in train mode (the teacher half of the train step); the LSTM
+    family raises, naming its item, and a student config is refused."""
     from torch import nn
 
     from avdn_tpu_torch.config import Args, postprocess_args
@@ -180,30 +188,47 @@ def test_fused_teacher_rollout_raises(tmp_path):
     roll = cfg.rollout_cfg(teacher=True)
     assert roll.fused_teacher and roll.fast_eval_trunk
     dk, vln = nn.Linear(1, 1), nn.Linear(1, 1)
-    kw = dict(map_bank=None, batch=None, cfg=roll, generator=None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        rollout_teacher_fused(family="et", darknet_model=dk, vln_model=vln, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        rollout_teacher_fused(family="lstm", darknet_model=dk.eval(),
-                              vln_model=vln.eval(), **kw)
+    train_roll = cfg.rollout_cfg(teacher=True, nss_w=0.0, train=True)
+    assert train_roll.train and train_roll.fused_teacher
+    for r in (roll, train_roll):
+        kw = dict(map_bank=None, batch=None, cfg=r, generator=None)
+        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+            rollout_teacher_fused(family="lstm", darknet_model=dk, vln_model=vln, **kw)
+    with pytest.raises(ValueError, match="teacher forcing only"):
+        rollout_teacher_fused(family="et", darknet_model=dk, vln_model=vln,
+                              map_bank=None, batch=None, generator=None,
+                              cfg=cfg.rollout_cfg(teacher=False, train=True))
 
 
 def test_driver_rejects_what_it_cannot_run(tmp_path, monkeypatch):
-    """The validation driver raises, naming the ROADMAP.md item, for
-    training, orbax checkpoints and multi-process runs."""
+    """The drivers raise, naming the ROADMAP.md item, for the production
+    train recipe (``--preset production``, ``--bf16 True`` training,
+    ``--remat``), orbax checkpoints and multi-process runs; ``--resume_file
+    latest`` without a checkpoint is a missing file in ``valid()``."""
     from avdn_tpu_torch.cli.train_et import main as cli_main
     from avdn_tpu_torch.config import Args, postprocess_args
-    from avdn_tpu_torch.train.loop import valid
+    from avdn_tpu_torch.train.loop import train_config_from_args, valid
+    from avdn_tpu_torch.train.step import check_train_supported
 
     base = ["--output_dir", str(tmp_path), "--render_twopass", "False",
             "--bf16", "False"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        cli_main(base, device="cpu")
-    for resume in ("latest", str(tmp_path)):
-        args = postprocess_args(Args(output_dir=str(tmp_path), render_twopass=False,
-                                     bf16=False, inference=True, resume_file=resume))
-        with pytest.raises(NotImplementedError, match="export_torch_ckpt"):
-            valid(args, device="cpu")
+    for flags in (["--preset", "production"], ["--bf16", "True"]):
+        with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
+            cli_main(["--output_dir", str(tmp_path)] + flags, device="cpu")
+    args = postprocess_args(Args(output_dir=str(tmp_path), remat=True))
+    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
+        check_train_supported(train_config_from_args(args))
+    with pytest.raises(ValueError, match="optim"):
+        train_config_from_args(postprocess_args(Args(output_dir=str(tmp_path),
+                                                     optim="rms")))
+    args = postprocess_args(Args(output_dir=str(tmp_path), render_twopass=False,
+                                 bf16=False, inference=True, resume_file="latest"))
+    with pytest.raises(FileNotFoundError, match="latest_dict"):
+        valid(args, device="cpu")
+    args = postprocess_args(Args(output_dir=str(tmp_path), render_twopass=False,
+                                 bf16=False, inference=True, resume_file=str(tmp_path)))
+    with pytest.raises(NotImplementedError, match="export_torch_ckpt"):
+        valid(args, device="cpu")
     monkeypatch.setenv("AVDN_NUM_PROCESSES", "2")
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         cli_main(base + ["--inference", "True"], device="cpu")

@@ -153,3 +153,98 @@ def test_layer_helpers():
     x8 = np.random.default_rng(6).normal(0, 1, (2, 8, 8)).astype(np.float32)
     close(layers.saliency_upsample(torch.from_numpy(x8)),
           jlayers.saliency_upsample(jnp.asarray(x8)), atol=1e-5)
+
+
+# ------------------------------------------------------------ train mode --
+
+
+@pytest.mark.parametrize("p", [0.1, 0.2, 0.5])
+def test_dropout_statistics(p):
+    """flax's dropout: each value kept with probability 1 − p (the keep rate
+    within 3σ of it over 2¹⁸ values), kept values scaled by 1/(1 − p), the
+    rest 0; the same masks from the same generator seed; the identity in
+    eval mode and without a generator outside train mode."""
+    drop = layers.Dropout(p).train()
+    x = torch.rand((512, 512)) + 0.5
+    y = drop(x, torch.Generator().manual_seed(7))
+    kept = y != 0
+    n = kept.numel()
+    keep = 1.0 - p
+    assert abs(float(kept.float().mean()) - keep) <= 3 * np.sqrt(keep * (1 - keep) / n)
+    torch.testing.assert_close(y[kept], x[kept] / keep, rtol=0, atol=0)
+    torch.testing.assert_close(drop(x, torch.Generator().manual_seed(7)), y,
+                               rtol=0, atol=0)
+    assert not torch.equal(drop(x, torch.Generator().manual_seed(8)), y)
+    with pytest.raises(ValueError, match="Generator"):
+        drop(x)
+    assert drop.eval()(x) is x
+
+
+def test_models_place_dropout_at_flax_sites():
+    """The dropout sites of the flax modules, with their rates: BERT's
+    embeddings, attention probabilities, two residual branches per layer
+    and its head; the trunk's input, four sites per encoder layer, the
+    action head's two and the saliency projection's. No parameter name
+    changes."""
+    bcfg = BertConfig.tiny()
+    bert_rates = sorted(m.p for m in BertLanguageEncoder(bcfg).modules()
+                        if isinstance(m, layers.Dropout))
+    assert bert_rates == sorted([0.1] * (1 + 3 * bcfg.num_layers) + [0.2])
+    ecfg = ETConfig(demb=64, encoder_heads=4, encoder_layers=2, dropout_emb=0.05)
+    et_rates = sorted(m.p for m in HAATransformer(ecfg).modules()
+                      if isinstance(m, layers.Dropout))
+    assert et_rates == sorted([0.05] + [0.1] * 4 * 2 + [0.2] * 3)
+
+
+def test_train_mode_forwards_draw_from_the_generator(et):
+    """In train mode the trunk's outputs depend on the generator (dropout
+    on) and equal eval mode's with every rate at 0."""
+    jm, v, inputs = et
+    model = load(HAATransformer(ETConfig(demb=64, encoder_heads=4, encoder_layers=1)),
+                 from_jax.et_state_dict(v, 1))
+    args = [torch.from_numpy(x) for x in inputs[:4]] + [torch.from_numpy(inputs[4]).long()]
+    with torch.no_grad():
+        ref = model(*args)
+        model.train()
+        a = model(*args, generator=torch.Generator().manual_seed(0))
+        b = model(*args, generator=torch.Generator().manual_seed(1))
+        assert not torch.equal(a[0], b[0])
+        for m in model.modules():
+            if isinstance(m, layers.Dropout):
+                m.p = 0.0
+        for g, w in zip(model(*args, generator=torch.Generator()), ref):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_darknet_batchnorm_train_mode_matches_flax():
+    """Train-mode BatchNorm against flax's ``train=True,
+    mutable=["batch_stats"]`` on the same weights and randomised running
+    statistics: outputs within 1e-4 (of the output's scale), the new running
+    statistics within 1e-5 relative (μ = 0.9 on the batch's biased variance,
+    not ``torch.nn.BatchNorm2d``'s update, which would be off by the
+    unbiased factor and the momentum); two calls in a row chain them. The
+    variance is E[x²] − E[x]² over 37,632 values per channel of convolutions
+    that themselves differ in summation order: the two sides agree to
+    3.8e-6 relative here, not to 1e-6."""
+    jcfg = JDarknetConfig.from_text(TINY_DARKNET_CFG)
+    cfg = DarknetConfig.from_text(TINY_DARKNET_CFG)
+    jm, v = dk_vars(jcfg, 6)
+    rng = np.random.default_rng(7)
+    xs = [((rng.uniform(0, 255, (3, 224, 224, 3)) - np.asarray(RGB_MEAN))
+           / np.asarray(RGB_STD)).astype(np.float32) for _ in range(2)]
+    model = load(Darknet(cfg), from_jax.darknet_state_dict(v, jcfg.block_dicts())).train()
+    apply = jax.jit(lambda variables, x: jm.apply(variables, x, train=True,
+                                                  mutable=["batch_stats"]))
+    stats = v["batch_stats"]
+    for x in xs:
+        want, upd = apply({"params": v["params"], "batch_stats": stats}, jnp.asarray(x))
+        stats = upd["batch_stats"]
+        got = model(torch.from_numpy(x))
+        close(got, want, atol=ATOL * float(np.abs(np.asarray(want)).max()))
+    sd = model.state_dict()
+    for name, s in stats.items():
+        i = int(name.split("_")[1])
+        pre = f"module_list.{i}.batch_norm_{i}."
+        for key, jkey in (("running_mean", "mean"), ("running_var", "var")):
+            np.testing.assert_allclose(sd[pre + key].numpy(), np.asarray(s[jkey]),
+                                       rtol=1e-5, atol=1e-6, err_msg=pre + key)

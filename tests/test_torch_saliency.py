@@ -11,6 +11,16 @@ reductions and losses within 1e-4. The kernel's slice bounds and cluster
 size are plain Python and are checked here; the kernel itself is held
 against the plain version on the card (the ``cuda`` tests below, and
 chip_smoke.py phase 3).
+
+The gradient of −NSS: autograd through ``saliency_reductions`` (its plain
+version on the CPU) against ``jax.grad`` of the JAX reductions with
+``use_pallas=False`` (the JAX package's train path), through the loss's
+``where(valid, −NSS, 0)`` with random item weights, for every ``nss_r``:
+within 1e-5 of the largest gradient. An item with Σg = 0 gets 0 on both
+sides; an item with a constant prediction (std = 0) gets NaN from XLA's
+autodiff (0·∞ through the square root's derivative) and exactly 0 from the
+port. On the card the backward kernel (``csrc/saliency_nss_grad.cu``) is
+held against that plain gradient (``cuda`` tests).
 """
 
 import functools
@@ -33,6 +43,8 @@ from avdn_tpu_torch.ops.saliency import (
     RESIDENT_BLOCKS_PER_SM,
     cluster_size,
     saliency_fused,
+    saliency_nss_grad,
+    saliency_nss_grad_plain,
     saliency_reductions,
     saliency_reductions_plain,
     saliency_stats,
@@ -189,6 +201,44 @@ def test_losses_match_jax():
     np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
 
 
+@pytest.mark.parametrize("nss_r", [0, 1, -1])
+def test_plain_grad_matches_jax(maps, nss_r):
+    """Item 1 has a constant prediction (std = 0), item 2 no fixation
+    (Σg = 0); items 0 and 3 are ordinary."""
+    import jax
+
+    pred, gt = maps
+    w = np.random.default_rng(4).uniform(0.5, 1.5, pred.shape[0]).astype(np.float32)
+
+    def jax_loss(p):
+        neg, valid, _, _ = jax_reductions(p, jnp.asarray(gt), nss_r=nss_r,
+                                          use_pallas=False)
+        return jnp.sum(jnp.asarray(w) * jnp.where(valid, neg, 0.0))
+
+    want = np.asarray(jax.grad(jax_loss)(jnp.asarray(pred)))
+    p = torch.from_numpy(pred).requires_grad_(True)
+    neg, valid, prec, rec = saliency_reductions(p, torch.from_numpy(gt), nss_r)
+    assert not (prec.requires_grad or rec.requires_grad or valid.requires_grad)
+    (torch.from_numpy(w) * torch.where(valid, neg, 0.0)).sum().backward()
+    got = p.grad.numpy()
+    assert np.isnan(want[1]).all() and (got[1] == 0).all()  # std = 0
+    assert (want[2] == 0).all() and (got[2] == 0).all()  # Σg = 0
+    ok = [0, 3]
+    np.testing.assert_allclose(got[ok], want[ok], rtol=0,
+                               atol=1e-5 * np.abs(want[ok]).max())
+    # the plain version of the backward kernel is that same gradient
+    up = torch.from_numpy(w) * valid
+    torch.testing.assert_close(
+        saliency_nss_grad_plain(torch.from_numpy(pred), torch.from_numpy(gt), up, nss_r),
+        p.grad, rtol=0, atol=0)
+
+
+def test_grad_wrapper_rejects_cpu_tensors(maps):
+    pred, gt = (torch.from_numpy(x) for x in maps)
+    with pytest.raises(ValueError, match="CUDA"):
+        saliency_nss_grad(pred, gt, torch.zeros((4, 8)), torch.zeros(4))
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -238,3 +288,31 @@ def test_fused_kernel_matches_plain_on_card(B, hw, nss_r):
     red = saliency_reductions(pred, gt, nss_r)
     for a, b in zip(red, first[1:]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nss_r", [0, 1, -1])
+@pytest.mark.parametrize("B", [8, 80, 240])
+def test_grad_kernel_matches_plain_on_card(B, nss_r):
+    """The backward kernel through the autograd Function against autograd
+    of the plain version: within 1e-5 of the largest gradient; exactly 0 on
+    the constant-prediction (std = 0) and empty-fixation items and where
+    the upstream gradient is 0; one launch per backward."""
+    _card()
+    pred, gt = _card_maps(B, 224, seed=B * 10 + nss_r + 1)
+    w = torch.from_numpy(np.random.default_rng(B).uniform(0.5, 1.5, B)
+                         .astype(np.float32)).cuda()
+    w[3] = 0.0  # a valid item the loss does not weigh
+    p = pred.clone().requires_grad_(True)
+    fwd, bwd = saliency_stats.launches, saliency_nss_grad.launches
+    neg, valid, _, _ = saliency_reductions(p, gt, nss_r)
+    (w * torch.where(valid, neg, 0.0)).sum().backward()
+    torch.cuda.synchronize()
+    assert (saliency_stats.launches, saliency_nss_grad.launches) == (fwd + 1, bwd + 1)
+    got = p.grad
+    want = saliency_nss_grad_plain(pred, gt, w * valid, nss_r)
+    assert torch.isfinite(got).all()
+    for i in (1, 2, 3):  # std = 0, Σg = 0, zero upstream
+        assert (got[i] == 0).all(), i
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

@@ -8,14 +8,15 @@ tiny width (the fixture of ``tests/test_render_mode_goldens.py``).
   rejects any other unknown key.
 * The golden: a checkpoint trained once by the JAX package with the
   gate-checkpoint recipe of ``tests/test_render_mode_goldens.py`` (iters 8,
-  lr 1e-3, exact render), exported with ``tools/export_torch_ckpt.py`` and
-  validated by the port's CLI with that file's exact-mode validation flags
-  (B = 2, T = 2, demb 64), reproduces ``tests/golden/eval_metrics_exact.json``:
-  the same keys, every value within rtol = atol = 1e-3 (``PIN_TOL["exact"]``),
-  and SR / oracle SR exactly equal.
+  lr 1e-3, exact render), exported with ``tools/export_torch_ckpt.py``
+  (made once per session and shared with the eval-mode files,
+  ``tests/torch_shared.py``) and validated by the port's CLI with that
+  file's exact-mode validation flags (B = 2, T = 2, demb 64), reproduces
+  ``tests/golden/eval_metrics_exact.json``: the same keys, every value
+  within rtol = atol = 1e-3 (``PIN_TOL["exact"]``), and SR / oracle SR
+  exactly equal.
 """
 
-import importlib.util
 import json
 import os
 
@@ -25,8 +26,9 @@ import torch
 
 from fixtures import write_fixture_dataset
 from test_e2e_loop import TINY_DARKNET_CFG, make_args
+from torch_shared import REPO, gate_checkpoint, port_mode_run
+from torch_shared import metrics_of as _metrics
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden", "eval_metrics_exact.json")
 PIN_TOL = 1e-3  # tests/test_render_mode_goldens.py PIN_TOL["exact"]
 
@@ -89,71 +91,18 @@ def test_load_reference_agent_filters_only_position_ids(tmp_path):
         del blob[key]["state_dict"][extra]
 
 
-def _port_argv(args):
-    """The port CLI's flags for a JAX ``make_args`` run."""
-    flags = dict(root_dir=args.root_dir, output_dir=args.output_dir,
-                 seed=args.seed, batch_size=args.batch_size,
-                 max_action_len=args.max_action_len,
-                 max_instr_len=args.max_instr_len, dialog_pad=args.dialog_pad,
-                 demb=args.demb, encoder_heads=args.encoder_heads,
-                 encoder_layers=args.encoder_layers, bert_layers=args.bert_layers,
-                 nss_w=args.nss_w, darknet_model_file=args.darknet_model_file,
-                 map_bank_px=args.map_bank_px, map_bank_slots=args.map_bank_slots,
-                 inference=args.inference, render_twopass=args.render_twopass,
-                 submit=args.submit)
-    if args.resume_file:
-        flags["resume_file"] = args.resume_file
-    argv = []
-    for k, v in flags.items():
-        argv += ["--" + k, str(v)]
-    return argv
-
-
-def _metrics(log_dir):
-    recs = [json.loads(line) for line in open(os.path.join(log_dir, "metrics.jsonl"))]
-    return {k: float(v) for r in recs for k, v in r.items()
-            if k != "step" and isinstance(v, (int, float))
-            and not k.startswith("throughput/")}
-
-
 @pytest.fixture(scope="module")
 def golden_run(tmp_path_factory):
-    """Train the gate checkpoint in JAX, export it, validate it with the
-    port's CLI on the CPU."""
-    from avdn_tpu.data import native
-    from avdn_tpu.train.loop import train
-    from avdn_tpu_torch.cli.train_et import main as port_main
-
-    root = write_fixture_dataset(str(tmp_path_factory.mktemp("andh_valid")))
-    out = str(tmp_path_factory.mktemp("out_train"))
-    cfg_path = os.path.join(out, "tiny_yolo.cfg")
-    with open(cfg_path, "w") as f:
-        f.write(TINY_DARKNET_CFG)
-    targs = make_args(root, out, cfg_path, iters=8, log_every=1, seed=0,
-                      lr=1e-3, render_twopass=False)
-    # load the native resampler before the JAX bank's decode threads do: a
-    # thread that races its first load falls back to OpenCV (±1 intensity),
-    # trains another checkpoint and misses the golden (ROADMAP.md queue 3)
-    native.available()
-    train(targs)
-
-    spec = importlib.util.spec_from_file_location(
-        "export_torch_ckpt", os.path.join(REPO, "tools", "export_torch_ckpt.py"))
-    export = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(export)
-    pt = os.path.join(out, "best_val_unseen.pt")
-    export.main(_port_argv(targs) + [
-        "--resume_file", os.path.join(targs.ckpt_dir, "best_val_unseen"),
-        "--output", pt])
-
-    run_dir = tmp_path_factory.mktemp("port_valid")
-    vargs = make_args(root, str(run_dir / "out"), cfg_path, inference=True,
-                      seed=0, render_twopass=False, resume_file=pt)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.chdir(run_dir)
-        results, timers = port_main(_port_argv(vargs), device="cpu")
-    return dict(args=vargs, results=results, timers=timers, root=root,
-                cfg_path=cfg_path)
+    """The gate checkpoint (trained in JAX and exported), validated with the
+    port's CLI on the CPU: the exact-mode run that the eval-mode files
+    share (``tests/torch_shared.py``)."""
+    gate = gate_checkpoint(tmp_path_factory)
+    run = port_mode_run(tmp_path_factory, "exact")
+    vargs = make_args(gate["root"], run["output_dir"], gate["cfg_path"],
+                      inference=True, seed=0, render_twopass=False,
+                      resume_file=gate["pt"], submit=True)
+    return dict(args=vargs, results=run["results"], timer_phases=run["timer_phases"],
+                run_dir=run["run_dir"])
 
 
 def test_valid_reproduces_exact_golden(golden_run):
@@ -183,25 +132,18 @@ def test_valid_writes_its_records(golden_run):
                                           "val_seen_human_att",
                                           "val_unseen_human_att"}
     assert {"nav_eval", "ha_eval", "map_load", "debug_images"} <= set(
-        golden_run["timers"].totals)
+        golden_run["timer_phases"])
 
 
-def test_valid_submit_writes_eval_ai_file(golden_run, tmp_path, monkeypatch):
+def test_valid_submit_writes_eval_ai_file(golden_run):
     """``--submit`` adds test_unseen and writes its predictions, the Eval.ai
     ``output_test_result.npy``, into the working directory (without
     ``--prefetch``); ``--profile_dir`` writes a Chrome trace of the first
-    batch."""
-    from avdn_tpu_torch.cli.train_et import main as port_main
-
-    args = make_args(golden_run["root"], str(tmp_path / "out"),
-                     golden_run["cfg_path"], inference=True, seed=0,
-                     render_twopass=False, submit=True)
-    monkeypatch.chdir(tmp_path)
-    trace_dir = tmp_path / "trace"
-    port_main(_port_argv(args) + ["--prefetch", "False", "--profile_dir",
-                                  str(trace_dir)], device="cpu")
-    assert json.load(open(trace_dir / "trace.json"))["traceEvents"]
-    preds = np.load(tmp_path / "output_test_result.npy", allow_pickle=True).item()
+    batch. (The shared exact run is that run, ``tests/torch_shared.py``.)"""
+    run_dir = golden_run["run_dir"]
+    assert json.load(open(os.path.join(run_dir, "trace", "trace.json")))["traceEvents"]
+    preds = np.load(os.path.join(run_dir, "output_test_result.npy"),
+                    allow_pickle=True).item()
     assert len(preds) == 16
     rec = next(iter(preds.values()))
     assert np.isfinite(np.asarray([c for c, _ in rec["path_corners"]])).all()
