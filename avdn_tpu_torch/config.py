@@ -132,8 +132,8 @@ _PRESETS = {
     "reference": {},
     # the JAX package's measured-best recipe: bf16 tower compute, two-pass
     # render in train too (eval/serving already default to it), batch 16
-    # with dots-policy remat. The port runs its eval side; training is
-    # ROADMAP.md queue 1 item 10.
+    # with dots-policy remat. The port trains it (train/loop.py:train);
+    # what it costs on the card is in PERF.md.
     "production": dict(
         batch_size=16,
         bf16=True,

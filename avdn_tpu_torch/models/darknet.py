@@ -18,6 +18,7 @@ kernel and bias to it (float32 parameters).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List
 
@@ -218,6 +219,23 @@ class Conv2d(nn.Conv2d):
 #: the running statistics keep 0.9 of their value at each train-mode call
 BN_MOMENTUM = 0.9
 
+_frozen_stats = 0
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Inside, train-mode :class:`BatchNorm2d` still normalises with the
+    batch's statistics but leaves the running ones as they are: a
+    rematerialised step recomputes its tower in the backward pass, and its
+    forward already updated them once (flax's functional state is updated
+    once per call, whatever is recomputed)."""
+    global _frozen_stats
+    _frozen_stats += 1
+    try:
+        yield
+    finally:
+        _frozen_stats -= 1
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` normalising in float32 and returning ``dtype``
@@ -230,7 +248,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     (``torch.nn.BatchNorm2d``'s own update would use the unbiased variance
     and weigh the new value by its ``momentum``.) The update is in place,
     outside autograd, so T calls in a row chain the statistics as T steps
-    of a rollout do."""
+    of a rollout do; inside :func:`frozen_running_stats` it is skipped."""
 
     def __init__(self, n: int, eps: float, dtype=torch.float32):
         super().__init__(n, eps=eps)
@@ -240,14 +258,18 @@ class BatchNorm2d(nn.BatchNorm2d):
         x = x.float()
         if not self.training:
             return super().forward(x).to(self.dtype)
-        with torch.no_grad():
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            mu = BN_MOMENTUM
-            self.running_mean.copy_(mu * self.running_mean + (1.0 - mu) * mean)
-            self.running_var.copy_(mu * self.running_var + (1.0 - mu) * var)
+        if not _frozen_stats:
+            self._update_running_stats(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y.to(self.dtype)
+
+    @torch.no_grad()
+    def _update_running_stats(self, x):
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mu = BN_MOMENTUM
+        self.running_mean.copy_(mu * self.running_mean + (1.0 - mu) * mean)
+        self.running_var.copy_(mu * self.running_var + (1.0 - mu) * var)
 
 
 def leaky_slope(dtype) -> float:

@@ -26,11 +26,13 @@ Semantics preserved from the reference (each deliberate):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
 
 from avdn_tpu_torch.models import et_fast
+from avdn_tpu_torch.models.darknet import frozen_running_stats
 from avdn_tpu_torch.ops.losses import step_losses
 from avdn_tpu_torch.ops.saliency import saliency_reductions
 from avdn_tpu_torch.sim.dynamics import move_view_corners_batch
@@ -71,8 +73,7 @@ class EpisodeBatch:
 
 @dataclasses.dataclass(frozen=True)
 class RolloutConfig:
-    """The rollout's settings (the JAX config's, but ``remat``: see
-    ``train/step.py:check_train_supported``)."""
+    """The rollout's settings (the JAX config's, field for field)."""
 
     max_action_len: int = 10
     teacher_forcing: bool = True       # feedback mode
@@ -99,6 +100,13 @@ class RolloutConfig:
     et_decode_trunk: bool = False      # step loop: incremental KV decode of
     # the trunk (models/et_fast.py) instead of the full re-encode; exact up
     # to reassociation, opt-in (it flips a borderline fixture episode)
+    remat: bool = False                # train step loop: recompute each
+    # step's model in the backward pass (torch.utils.checkpoint); the render,
+    # oracle and dynamics stay outside (gradient-free), so the views are
+    # saved, as the JAX "dots" policy saves the tagged render outputs. The
+    # fused teacher rollout is never rematerialised (JAX: the same)
+    remat_policy: str = "full"         # "full": save the step's inputs only;
+    # "dots": also the outputs of its matrix products and convolutions
 
 
 @dataclasses.dataclass
@@ -323,25 +331,97 @@ def make_et_step(darknet_model, et_model, batch: EpisodeBatch, cfg: RolloutConfi
             "lengths": torch.zeros((B,), dtype=torch.long, device=dev),
         }
 
-    def step(state, x, dir_feat, t, ended):
+    def model(x, pad, dirs, lengths, *prev_feats):
+        """The step's differentiable part (train mode): the vision tower on
+        the step's views, the history rebuilt out of place from the
+        per-step features (autograd needs every step's buffer as it was),
+        and the trunk."""
         feats = darknet_model(x)
         if cfg.language_only:
             feats = torch.zeros_like(feats)
+        frames = torch.cat([torch.stack([*prev_feats, feats], 1), pad], 1)
+        action, sal = et_model(batch.lang_feat, batch.lang_cls, frames, dirs,
+                               lengths, generator)
+        return feats, action, sal
+
+    if cfg.train and cfg.remat:
+        model = rematerialised(model, cfg.remat_policy, generator)
+
+    def step(state, x, dir_feat, t, ended):
+        state["lengths"] = state["lengths"] + (~ended).long()
         if cfg.train:
-            state["feats"] = state.get("feats", []) + [feats]
-            pad = state["frames"][:, len(state["feats"]):]
-            state["frames"] = torch.cat([torch.stack(state["feats"], 1), pad], 1)
             state["dirs"] = torch.cat([state["dirs"][:, :t], dir_feat[:, None],
                                        state["dirs"][:, t + 1:]], 1)
-        else:
-            state["frames"][:, t] = feats
-            state["dirs"][:, t] = dir_feat
-        state["lengths"] = state["lengths"] + (~ended).long()
+            prev = state.get("feats", [])
+            feats, action, sal = model(x, state["frames"][:, len(prev) + 1:],
+                                       state["dirs"], state["lengths"], *prev)
+            state["feats"] = prev + [feats]
+            return state, action, sal
+        feats = darknet_model(x)
+        if cfg.language_only:
+            feats = torch.zeros_like(feats)
+        state["frames"][:, t] = feats
+        state["dirs"][:, t] = dir_feat
         action, sal = et_model(batch.lang_feat, batch.lang_cls, state["frames"],
                                state["dirs"], state["lengths"], generator)
         return state, action, sal
 
     return step, init_state
+
+
+#: the ops whose outputs ``--remat_policy dots`` saves: the matrix products
+#: and the convolutions (JAX's ``dots_with_no_batch_dims_saveable`` saves
+#: only the products without batch dimensions; a different choice of what to
+#: keep, the same values either way)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.convolution.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def rematerialised(fn: Callable, policy: str, generator: torch.Generator):
+    """``fn`` under ``torch.utils.checkpoint``: its forward keeps only its
+    inputs (``policy`` "full") or also the outputs of its matrix products and
+    convolutions ("dots"), and the backward pass recomputes the rest. The
+    recompute is the forward again, exactly: it draws its dropout masks from
+    ``generator`` restored to the state the forward started from (and
+    leaves ``generator`` as it found it), and it does not update the
+    BatchNorm running statistics a second time (``frozen_running_stats``).
+    Nothing in ``fn`` may sync with the host or draw other random numbers."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat policy {policy!r}: choose 'full' or 'dots'")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+
+    def call(*args):
+        start = generator.get_state()
+        forward_done = []
+
+        def run(*inputs):
+            if not forward_done:
+                forward_done.append(True)
+                return fn(*inputs)
+            outer = generator.get_state()
+            generator.set_state(start)
+            try:
+                with frozen_running_stats():
+                    return fn(*inputs)
+            finally:
+                generator.set_state(outer)
+
+        return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False,
+                          **kw)
+
+    return call
 
 
 def _make_et_decode_step(darknet_model, et_model, batch: EpisodeBatch,

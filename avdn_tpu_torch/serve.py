@@ -21,7 +21,6 @@ False`` restore the reference numerics. The constructor sets
 
 from __future__ import annotations
 
-import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -42,6 +41,7 @@ from avdn_tpu_torch.train.loop import (
     eval_bf16,
     eval_config_from_args,
     init_state,
+    resolve_inference_checkpoint,
     resolve_render_crop,
 )
 from avdn_tpu_torch.train.step import make_eval_rollout
@@ -70,12 +70,8 @@ class Navigator:
             args, self.device, bf16=eval_bf16(args, self.device))
         init_state((self.bert, self.darknet, self.vln),
                    torch.Generator().manual_seed(args.seed))
+        resolve_inference_checkpoint(args)
         if args.resume_file:
-            if args.resume_file == "latest" or os.path.isdir(args.resume_file):
-                raise NotImplementedError(
-                    "orbax checkpoint directories need the JAX package; export "
-                    "them with tools/export_torch_ckpt.py (training and its "
-                    "checkpoints are ROADMAP.md queue 1 item 10)")
             load_agent_weights((self.bert, self.darknet, self.vln),
                                load_reference_agent(args.resume_file))
         self.tokenizer = WordPieceTokenizer.load(args.bert_vocab_file)

@@ -22,7 +22,10 @@ amplifies (one float32 ulp of a coordinate moves a view pixel by up to
 255·ulp), so they are evaluated here in the same order with the same
 roundings (``geometry.transforms.fma``, exact through float64): the
 coordinates of both packages agree bit for bit and the views to within
-float32 rounding of the blend.
+float32 rounding of the blend. That includes projective quads (the
+homography's last row not (0, 0, 1)), where XLA computes ``pts @ H.T`` as a
+dot over the batch and, at a batch of one or two quads, its small-matrix
+kernel leaves some columns without an FMA (``_XLA_UNFUSED``).
 """
 
 from __future__ import annotations
@@ -80,13 +83,38 @@ def unit_positions(out_hw: int, device, subsample: int = 1) -> torch.Tensor:
     return g * step
 
 
+#: the output columns of XLA's CPU dot ``(n², 3) @ (3, 3B)`` that its
+#: small-matrix kernel computes without a fused multiply-add (products
+#: rounded, then summed in order), for the only widths 3B ≤ 8 it has: B = 1
+#: and 2. Every other column, and every column from B = 3 on, is
+#: ``fma(y, h1, x·h0) + h2``. Read from jax/jaxlib 0.9.0's CPU backend on
+#: x86-64 (the optimised HLO, and ``jnp.dot`` probed at widths 1–9): it is
+#: a quirk of that code generator, kept on every device, the card included,
+#: only so that the port's coordinates equal the JAX package's CPU
+#: reference bit for bit. The key is the number of quads in one call, which
+#: stands for the batch that JAX's dot spans; under the JAX package's
+#: data-parallel layouts that is each device's share, which the port cannot
+#: see. ``tests/test_torch_sim.py::test_render_projective_quads`` fails when
+#: the reference's code generator changes.
+_XLA_UNFUSED = {1: [[True, True, False]],
+                2: [[True, True, True], [True, False, False]]}
+
+
+def _xla_unfused_columns(n_quads: int, device):
+    """(n_quads, 3) bool mask of the homography rows whose ``pts @ H.T``
+    XLA's CPU backend accumulates without an FMA, or None (all fused)."""
+    rows = _XLA_UNFUSED.get(n_quads)
+    return None if rows is None else torch.tensor(rows, device=device)
+
+
 def view_to_map_coords(src_quads: torch.Tensor, out_hw: int = VIEW_HW,
                        positions: torch.Tensor | None = None) -> torch.Tensor:
     """Continuous map-space (x, y) coordinates of every output pixel:
     (B, 4, 2) view-area corners in map image coords → (B, n, n, 2), the
     inverse perspective map that warpPerspective applies per pixel.
     ``positions`` (n,) overrides the unit-square sample positions (default
-    the ``out_hw`` pixel grid)."""
+    the ``out_hw`` pixel grid). B is the batch the JAX package's dot spans:
+    pass a whole batch's quads."""
     H = square_to_quad_homography(src_quads.float())  # (B, 3, 3)
     if positions is None:
         positions = unit_positions(out_hw, src_quads.device)
@@ -96,6 +124,10 @@ def view_to_map_coords(src_quads: torch.Tensor, out_hw: int = VIEW_HW,
     Hb = H[:, None, None, :, :]  # (B, 1, 1, 3, 3): row k maps to output k
     # pts @ H.T with pts = (x, y, 1), accumulated term by term
     mapped = fma(ys, Hb[..., 1], xs * Hb[..., 0]) + Hb[..., 2]
+    unfused = _xla_unfused_columns(H.shape[0], H.device)
+    if unfused is not None:
+        plain = (xs * Hb[..., 0] + ys * Hb[..., 1]) + Hb[..., 2]
+        mapped = torch.where(unfused[:, None, None, :], plain, mapped)
     denom = mapped[..., 2:3]
     return mapped[..., :2] / torch.where(denom.abs() > 1e-12, denom, 1.0)
 

@@ -24,18 +24,16 @@ from the dataset's finest ``lat_ratio`` (``auto_render_crop``).
 
 Numerics. The tent weights are built from the same float32 positions as the
 JAX package's (its contracted multiply-adds rounded once, through
-``geometry.transforms.fma``), and each output column of a pass has at most
-two nonzero taps, so the float32 contraction is exact in any summation
-order. In bf16 mode the weights (and pass A's result) are rounded to
-bfloat16 and contracted in float32 — the products of two bfloat16 values
-are exact in float32 — which is what the JAX package's bf16 × bf16 →
-float32 einsums compute. On the CPU the bf16 mode runs in float32, as in
-the JAX package.
-
-The weights are materialised one chunk of lines at a time (64 source
-columns in pass A, 56 output rows in pass B) for a group of items at most
-``_WEIGHT_BUDGET`` elements large: a hand kernel that computes the two taps
-in place is queued (ROADMAP.md queue 2).
+``geometry.transforms.fma``), and each output of a pass has at most two
+nonzero taps, ⌊pos⌋ and ⌊pos⌋ + 1: the port gathers those two and adds
+their products (``_taps``) instead of contracting the dense weights as the
+JAX einsums do. In bf16 mode the weights (and pass A's result) are rounded
+to bfloat16 and the products of two bfloat16 values (or of one and a uint8
+pixel) are exact in float32, so the sum of the two is rounded once, as in
+the JAX package's bf16 × bf16 → float32 einsums, in any order. In float32
+(the CPU, where the bf16 mode runs float32 as in the JAX package) each
+product rounds and the sum may differ from a contraction's by an ulp.
+A hand kernel for the two taps is queued (ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
@@ -55,8 +53,6 @@ from avdn_tpu_torch.sim.render import (
 
 _MAX_VIEW_EDGE_M = 400.0  # altitude cap (reference agent.py:285-384 zoom clamp)
 _DEG_TO_M = 11.13e4       # reference env.py metre conversion
-#: Largest tent-weight tensor one contraction materialises (elements).
-_WEIGHT_BUDGET = 2 ** 28
 
 
 def auto_render_crop(min_lat_ratio: float) -> int:
@@ -76,13 +72,27 @@ def _iso_row_coeffs(H: torch.Tensor, out_hw: int):
     For fixed unit-square y: sx = (q·u + p)/(s·u + r), sy = (q'·u + p')/
     (s·u + r) share the denominator; eliminating u:
     sy = [(p'·s − q'·r)·sx + (q'·p − p'·q)] / (s·p − q·r)."""
-    yu = unit_positions(out_hw, H.device)[None]
     col = [[H[:, i, j, None] for j in range(3)] for i in range(3)]
-    p = fma(col[0][1], yu, col[0][2])
+    if H.shape[0] == 1:
+        # a lone item's entries are scalars to XLA, which folds the
+        # positions' 1/(out − 1) into them: h·yu is computed i·(h/(out − 1))
+        # (jax/jaxlib 0.9.0's CPU backend; kept on every device only for
+        # bit-parity with that reference, like render._XLA_UNFUSED)
+        step = torch.tensor(1.0 / (out_hw - 1.0), dtype=torch.float32, device=H.device)
+        idx = torch.arange(out_hw, dtype=torch.float32, device=H.device)[None]
+
+        def line(h, c0):
+            return fma(idx, h * step, c0)
+    else:
+        yu = unit_positions(out_hw, H.device)[None]
+
+        def line(h, c0):
+            return fma(h, yu, c0)
+    p = line(col[0][1], col[0][2])
     q = col[0][0]
-    r = fma(col[2][1], yu, torch.ones_like(yu))
+    r = line(col[2][1], torch.ones_like(p))
     s = col[2][0]
-    pp = fma(col[1][1], yu, col[1][2])
+    pp = line(col[1][1], col[1][2])
     qp = col[1][0]
     den = fma(s, p, -(q * r))
     den = torch.where(den.abs() > 1e-12, den,
@@ -92,18 +102,27 @@ def _iso_row_coeffs(H: torch.Tensor, out_hw: int):
     return a, b
 
 
-def _tent(positions: torch.Tensor, length: int, dtype) -> torch.Tensor:
-    """Linear-interpolation weights ``W[..., m, l] = max(0, 1 − |l −
-    pos[..., m]|)`` for l in [0, length), in float32 (rounded through
-    ``dtype``). A position fully outside [−1, length] gives an all-zero row:
-    the constant-0 border. Built in place: one tensor of the weights'
-    size."""
-    l_idx = torch.arange(length, dtype=torch.float32, device=positions.device)
-    w = positions[..., None] - l_idx
-    w.abs_().neg_().add_(1.0).clamp_(min=0.0)
-    if dtype != torch.float32:
-        w = w.to(dtype).float()
-    return w
+def _taps(lines: torch.Tensor, positions: torch.Tensor, dtype) -> torch.Tensor:
+    """Linear interpolation of each line at its positions: ``out[..., m, c]
+    = Σ_l W[..., m, l] · lines[..., l, c]`` for the tent weights ``W[..., m,
+    l] = max(0, 1 − |l − pos[..., m]|)``, l in [0, L) (a position fully
+    outside [−1, L] gives 0: the constant-0 border), evaluated on the only
+    two taps a position has, ⌊pos⌋ and ⌊pos⌋ + 1, with each weight computed
+    as the dense float32 tent computes it (rounded through ``dtype``).
+    ``lines`` (..., L, C), ``positions`` (..., M) → (..., M, C) float32."""
+    L = lines.shape[-2]
+    lo = torch.floor(positions)
+    out = None
+    for tap in (lo, lo + 1.0):
+        w = (1.0 - (positions - tap).abs()).clamp(min=0.0)
+        if dtype != torch.float32:
+            w = w.to(dtype).float()
+        inside = (tap >= 0) & (tap < L)
+        idx = torch.where(inside, tap, 0.0).long()[..., None]
+        v = torch.gather(lines, -2, idx.expand(*idx.shape[:-1], lines.shape[-1]))
+        v = v.float() * torch.where(inside, w, 0.0)[..., None]
+        out = v if out is None else out + v
+    return out
 
 
 def _crops(map_bank, map_idx, y0, x0, swap, crop_hw: int):
@@ -123,10 +142,9 @@ def _crops(map_bank, map_idx, y0, x0, swap, crop_hw: int):
 
 
 def _warp_group(map_bank, map_idx, quads, crop_hw: int, out_hw: int,
-                chunk_a: int, chunk_b: int, dtype) -> torch.Tensor:
-    """Two-pass warp of a group of items (quads rounded, (N, 4, 2) map
+                dtype) -> torch.Tensor:
+    """Two-pass warp of a batch of items (quads rounded, (N, 4, 2) map
     x, y). Returns views (N, out, out, 3) float32."""
-    N = quads.shape[0]
     Hm, Wm = map_bank.shape[1], map_bank.shape[2]
 
     # ---- rotation-degeneracy swap: keep the u axis closer to source x ----
@@ -156,23 +174,11 @@ def _warp_group(map_bank, map_idx, quads, crop_hw: int, out_hw: int,
         - x0.float()[:, None, None]                                  # (N, v, u)
 
     # ---- pass A: I[x, v, c] = Σ_h WA[x, v, h] · crop[h, x, c] ----
-    I = torch.empty((N, crop_hw, out_hw, 3), dtype=torch.float32,
-                    device=quads.device)
-    for lo in range(0, crop_hw, chunk_a):
-        cols = crop[:, :, lo:lo + chunk_a].permute(0, 2, 1, 3).float()  # (N, x, h, c)
-        I[:, lo:lo + chunk_a] = torch.matmul(
-            _tent(posA[:, lo:lo + chunk_a], crop_hw, dtype), cols)
+    I = _taps(crop.permute(0, 2, 1, 3), posA, dtype)                # (N, x, v, c)
     if dtype != torch.float32:
         I = I.to(dtype).float()
-
     # ---- pass B: out[v, u, c] = Σ_x WB[v, u, x] · I[x, v, c] ----
-    out = torch.empty((N, out_hw, out_hw, 3), dtype=torch.float32,
-                      device=quads.device)
-    for lo in range(0, out_hw, chunk_b):
-        rows = I[:, :, lo:lo + chunk_b].permute(0, 2, 1, 3)             # (N, v, x, c)
-        out[:, lo:lo + chunk_b] = torch.matmul(
-            _tent(posB[:, lo:lo + chunk_b], crop_hw, dtype), rows)
-    return out
+    return _taps(I.permute(0, 2, 1, 3), posB, dtype)                 # (N, v, u, c)
 
 
 def render_batch_twopass(map_bank: torch.Tensor, map_idx: torch.Tensor,
@@ -201,14 +207,6 @@ def render_batch_twopass(map_bank: torch.Tensor, map_idx: torch.Tensor,
     max_crop = min(map_bank.shape[1], map_bank.shape[2])
     if crop_hw > max_crop:
         crop_hw = max(chunk, (max_crop // chunk) * chunk)
-    # pass-B chunk: the largest divisor of out_hw ≤ chunk (224 → 56)
-    chunk_b = max(d for d in range(1, chunk + 1) if out_hw % d == 0)
-
-    per_item = max(chunk, chunk_b) * crop_hw * out_hw
-    group = max(1, _WEIGHT_BUDGET // per_item)
-    views = torch.cat([
-        _warp_group(map_bank, map_idx[lo:lo + group], quads[lo:lo + group],
-                    crop_hw, out_hw, chunk, chunk_b, dtype)
-        for lo in range(0, quads.shape[0], group)])
+    views = _warp_group(map_bank, map_idx, quads, crop_hw, out_hw, dtype)
     sal = saliency_at(view_to_map_coords(quads, out_hw), circles, n_circles)
     return views, sal

@@ -6,9 +6,11 @@
 followed by the checkpoint ``latest_dict_{iter}.pt``, the validation and
 ``best_val_unseen.pt`` by val_unseen SPL; ``--resume_file latest`` resumes
 from the newest ``latest_dict_*``, and SIGTERM saves one and exits cleanly
-(``utils/preemption.py``). Training runs the reference numerics: fp32
-towers and the exact render unless ``--render_twopass True``; its
-validation runs the eval defaults below on the same weights.
+(``utils/preemption.py``). Training runs the reference numerics unless
+asked otherwise: fp32 towers unless ``--bf16 True``, the exact render
+unless ``--render_twopass True``, no rematerialisation unless ``--remat``
+(``--preset production`` sets all three and batch 16, under any explicit
+flag); its validation runs the eval defaults below on the same weights.
 
 ``valid`` → ``run_validation`` → ``_eval_env`` mirror the reference's
 inference flow (src/xview_et/main.py:188-288): the student-forced nav eval
@@ -78,7 +80,10 @@ def eval_bf16(args: Args, device: torch.device) -> bool:
 
 def train_bf16(args: Args) -> bool:
     """Training computes fp32 unless ``--bf16 True`` (the reference numerics
-    by default; the bf16 recipe is opt-in, ``--preset production``)."""
+    by default; the bf16 recipe is opt-in, ``--preset production``). bf16
+    training runs bf16 on any device: the parameters and optimizer stay
+    fp32 and the towers compute at flax's bf16 rounding points under
+    autograd."""
     return args.bf16 is True
 
 
@@ -464,16 +469,7 @@ def valid(args: Args, device=None):
     holds the map loading, nav-eval, HA-eval and debug-image walls."""
     device = resolve_device(device)
     check_supported(args, device)
-    if args.resume_file == "latest":
-        # the sentinel train() honours; inference has no fresh-start fallback
-        args.resume_file = _find_latest_checkpoint(args.ckpt_dir)
-        if not args.resume_file:
-            raise FileNotFoundError(f"--resume_file latest: no latest_dict_*.pt "
-                                    f"checkpoint under {args.ckpt_dir}")
-    if args.resume_file and os.path.isdir(args.resume_file):
-        raise NotImplementedError(
-            f"--resume_file {args.resume_file}: orbax checkpoints need the JAX "
-            "package; export them to a .pt with tools/export_torch_ckpt.py")
+    resolve_inference_checkpoint(args)
     set_random_seed(args.seed)
     _check_dataset(args, ["val_seen", "val_unseen"])
     use_fp32_numerics()
@@ -549,18 +545,25 @@ def _prune_checkpoints(ckpt_dir: str, keep: int) -> None:
         os.remove(path)
 
 
-def check_train_flags(args: Args) -> None:
-    """Raise ``NotImplementedError`` for the train flags the port cannot run
-    yet, naming their ROADMAP.md item."""
-    if args.preset == "production":
+def _refuse_orbax(path) -> None:
+    if path and os.path.isdir(path):
         raise NotImplementedError(
-            "--preset production: the production train recipe (bf16 training, "
-            "dots remat, the two-pass render in training, batch 16) is ROADMAP.md "
-            "queue 1 item 10b")
-    if train_bf16(args):
-        raise NotImplementedError(
-            "--bf16 True in training: bf16 towers through flax's rounding points "
-            "under autograd are ROADMAP.md queue 1 item 10b")
+            f"--resume_file {path}: orbax checkpoints need the JAX "
+            "package; export them to a .pt with tools/export_torch_ckpt.py")
+
+
+def resolve_inference_checkpoint(args: Args) -> None:
+    """``--resume_file latest`` → the newest ``latest_dict_*.pt`` under
+    ``ckpts/`` (the sentinel ``train()`` honours). Inference and serving
+    have no fresh start to fall back on, so without one it raises
+    ``FileNotFoundError``; an orbax directory raises
+    ``NotImplementedError``."""
+    if args.resume_file == "latest":
+        args.resume_file = _find_latest_checkpoint(args.ckpt_dir)
+        if not args.resume_file:
+            raise FileNotFoundError(f"--resume_file latest: no latest_dict_*.pt "
+                                    f"checkpoint under {args.ckpt_dir}")
+    _refuse_orbax(args.resume_file)
 
 
 def train(args: Args, device=None):
@@ -583,13 +586,12 @@ def train(args: Args, device=None):
     """
     device = resolve_device(device)
     check_supported(args, device)
-    check_train_flags(args)
     set_random_seed(args.seed)
     _check_dataset(args, ["train", "val_seen", "val_unseen"])
     use_fp32_numerics()
     args = resolve_render_crop(args)
     cfg = train_config_from_args(args)
-    models = build_models(args, device)
+    models = build_models(args, device, bf16=train_bf16(args))
     init_state(models, torch.Generator().manual_seed(args.seed), args)
     state = create_train_state(cfg, *models)
     train_step = make_train_step(cfg, *models)
@@ -607,11 +609,13 @@ def train(args: Args, device=None):
                             seed=args.seed, full_traj=args.train_val_on_full)
     val_envs = build_dataset(args)
 
-    # validation runs the eval config on the same weights; bf16 eval towers
-    # (the default on the card) are separate modules that take a copy
+    # validation runs the eval config on the same weights; eval towers of
+    # another dtype than training's (bf16 eval, the default on the card,
+    # after fp32 training) are separate modules that take a copy
     ecfg = eval_config_from_args(args)
-    emodels = (build_models(args, device, bf16=True) if eval_bf16(args, device)
-               else models)
+    ebf16 = eval_bf16(args, device)
+    emodels = (build_models(args, device, bf16=ebf16)
+               if ebf16 != train_bf16(args) else models)
     writer.text("validation: " + describe_eval_mode(ecfg, emodels))
     eval_student = make_eval_rollout(ecfg, *emodels, teacher=False)
     eval_teacher = make_eval_rollout(ecfg, *emodels, teacher=True, collect_ha=True)
@@ -630,10 +634,7 @@ def train(args: Args, device=None):
     if args.resume_file == "latest":
         args.resume_file = _find_latest_checkpoint(args.ckpt_dir)
         writer.text(f"auto-resume: {args.resume_file or 'no checkpoint, fresh start'}")
-    if args.resume_file and os.path.isdir(args.resume_file):
-        raise NotImplementedError(
-            f"--resume_file {args.resume_file}: orbax checkpoints need the JAX "
-            "package; export them to a .pt with tools/export_torch_ckpt.py")
+    _refuse_orbax(args.resume_file)
     if args.resume_file:
         ckpt.wait_for_saves()  # the file may be an in-flight async write
         ckpt.load_checkpoint(args.resume_file, state, optimizer=args.resume_optimizer)

@@ -80,7 +80,7 @@ class TrainConfig:
     render_crop: int = 512         # two-pass source window, px
     render_bf16: bool = True       # bf16 two-pass weights (fp32 on the CPU)
     fold_bn_eval: bool = True      # fold BN + input norm into eval conv weights
-    remat: bool = False            # rematerialise steps under AD (ROADMAP 10b)
+    remat: bool = False            # rematerialise the train step loop's steps
     remat_policy: str = "full"     # "full" | "dots"
     fused_teacher: bool = True
     fast_eval_trunk: bool = True
@@ -105,6 +105,8 @@ class TrainConfig:
             fused_teacher=self.fused_teacher,
             fast_eval_trunk=self.fast_eval_trunk,
             et_decode_trunk=self.et_decode_trunk,
+            remat=self.remat and train,
+            remat_policy=self.remat_policy,
             **kw,
         )
 
@@ -148,14 +150,11 @@ def check_rollout_supported(cfg: TrainConfig) -> None:
 
 
 def check_train_supported(cfg: TrainConfig) -> None:
-    """Raise for a train config the port cannot run yet, naming its ROADMAP
-    item (``--bf16 True`` training is refused where the towers are built,
-    ``train/loop.py:train_bf16``)."""
+    """Raise for a train config the port cannot run yet (naming its ROADMAP
+    item) or that is malformed."""
     check_rollout_supported(cfg)
-    if cfg.remat:
-        raise NotImplementedError(
-            "--remat: rematerialised training (torch.utils.checkpoint with the "
-            "render saved) is ROADMAP.md queue 1 item 10b")
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"--remat_policy {cfg.remat_policy!r}: choose 'full' or 'dots'")
     if cfg.feedback not in ("student", "teacher"):
         raise ValueError(f"--feedback {cfg.feedback!r}: choose 'student' or 'teacher'")
     if cfg.grad_accum < 1:

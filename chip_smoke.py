@@ -10,13 +10,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
              parallel, into build/avdn_tpu_torch/.
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes (the fused saliency kernel: B = 8 and 16,
-             the per-step batches, and 80 and 240, T·B of the fused teacher
-             path; each nss_r; repeated launches bitwise equal; its backward
-             kernel of −NSS, ``grad_kernel``, at N = 8, 80 and 240 against
-             autograd of the plain version, with an empty-ground-truth and a
-             constant-prediction item), with device times from
-             torch.profiler, cold (held against the HBM byte bound) and hot
-             in L2.
+             the per-step batches, and 80, 160 and 240, T·B of the fused
+             teacher path; each nss_r; repeated launches bitwise equal; its
+             backward kernel of −NSS, ``grad_kernel``, at N = 8, 16, 80 and
+             240 against autograd of the plain version, with an
+             empty-ground-truth and a constant-prediction item), with device
+             times from torch.profiler, cold (held against the HBM byte
+             bound) and hot in L2.
 4. slice   — the ET-HAA inference path at full width (BERT-base 12×768,
              Darknet-53 at 224 px, HAA trunk 2×768, T = 10, a 4096 px
              8-slot map bank), fp32 and the exact render, random weights
@@ -49,8 +49,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
              the checkpoints loadable by ``valid()``, the saliency
              launches per step (forward T + 1, backward T), the median step
              wall, peak memory and one profiled step (idle share, top
-             kernels). Then one train step at tiny width, dropout 0, on the
-             card and on the CPU: loss and grad norms within 1e-4.
+             kernels).
+6c. train_production — the same with ``--preset production`` (B = 16, bf16
+             towers, the two-pass render in both rollouts, dots remat), T =
+             10, on the val splits and 48 train items: the saliency launches
+             per step (forward 10 at N = 16 and 1 at N = 160, backward 10 at
+             N = 16), the step wall, idle share, launches and peak memory;
+             then one step at B = 16 with and without remat (peak memory of
+             each). Then one train step at tiny width, dropout 0, on the card
+             and on the CPU: loss and grad norms within 1e-4 in fp32, and
+             within 2e-2 in the production recipe's bf16 (teacher feedback
+             through the step loop, fp32 render weights on both sides).
 7. render  — the two-pass render fp32 on the card against the CPU (B = 2),
              bf16 against fp32 weights (B = 8), and the per-call time of the
              exact and two-pass renders at B = 8 and N = 80.
@@ -92,8 +101,9 @@ LAT_RATIO = 5e-6  # degrees per pixel (xView-like ground sampling)
 DEG_TO_M = 11.13e4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # B of the saliency kernel: the per-step B (8; 16 in the production preset)
-# and the fused teacher path's T·B (80 here; 15 × 16 at the default horizon)
-SALIENCY_BATCHES = (SERVE_BATCH, 16, T_STEPS * SERVE_BATCH, 15 * 16)
+# and the fused teacher path's T·B (80 here, 160 in the production phase;
+# 15 × 16 at the default horizon)
+SALIENCY_BATCHES = (SERVE_BATCH, 16, T_STEPS * SERVE_BATCH, T_STEPS * 16, 15 * 16)
 COLD_BYTES = 128 * 2 ** 20  # input copies cycled through for an L2-cold time
 
 
@@ -146,7 +156,7 @@ def kernel_events(prof):
 
 
 def device_time_ms(fn, n: int = 50, launches: int | None = None,
-                   attempts: int = 3):
+                   attempts: int = 5):
     """Device time of one ``fn()`` and the kernels it launches: the summed
     time of the CUDA kernels that ``n`` calls launch (torch.profiler),
     divided by ``n``, and their count divided by ``n``. On the H100 machine
@@ -154,12 +164,24 @@ def device_time_ms(fn, n: int = 50, launches: int | None = None,
     a session that records none, or other than ``launches`` per call where
     that is known, is run again, up to ``attempts`` times, and then the
     result is None."""
+    got = _profiled_sessions(fn, n, launches, attempts)
+    return None if got is None or got[2] != got[3] else got[:2]
+
+
+def _profiled_sessions(fn, n, launches, attempts):
+    """Up to ``attempts`` torch.profiler sessions of ``n`` calls of ``fn``:
+    ``(ms per call, kernels per call, kernels recorded, kernels launched)``
+    of the first session that recorded every launch (every session that
+    recorded any, where ``launches`` per call is not known), else of the
+    fullest session that recorded at least 90 % of ``n · launches``, its
+    time the mean recorded kernel times ``launches``; else None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    partial = None
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -168,21 +190,28 @@ def device_time_ms(fn, n: int = 50, launches: int | None = None,
         kernels = kernel_events(prof)
         total_us = sum(e.self_device_time_total for e in kernels)
         count = sum(e.count for e in kernels)
-        if total_us > 0 and (launches is None or count == launches * n):
-            return total_us / 1e3 / n, count / n
+        if total_us > 0 and launches is None:
+            return total_us / 1e3 / n, count / n, count, count
+        if total_us > 0 and count == launches * n:
+            return total_us / 1e3 / n, launches, count, count
+        if (total_us > 0 and 0.9 * launches * n <= count < launches * n
+                and (partial is None or count > partial[2])):
+            partial = (total_us / 1e3 / count * launches, launches, count, launches * n)
         log(f"[profile] torch.profiler session {attempt} of {attempts} recorded "
             f"{count} kernels for {n} calls: " + ", ".join(
                 f"{e.count} x {e.key[:60]}" for e in kernels))
-    return None
+    return partial
 
 
-def kernel_time_ms(fn, n: int = 50) -> float:
-    """Device time of one launch of a one-kernel ``fn``; fails the run if
-    the profiler does not record every launch."""
-    got = device_time_ms(fn, n, launches=1)
+def kernel_time_ms(fn, n: int = 50):
+    """Device time of one launch of a one-kernel ``fn`` and the number of
+    the ``n`` launches that the profiler session behind it recorded
+    (``n`` unless no session of five recorded them all); fails the run if
+    no session recorded at least 90 % of them."""
+    got = _profiled_sessions(fn, n, 1, 5)
     if got is None:
-        fail("torch.profiler did not record every kernel launched")
-    return got[0]
+        fail("torch.profiler recorded too few of the kernels launched")
+    return got[0], got[2]
 
 
 # ----------------------------------------------------------------- inputs --
@@ -348,8 +377,8 @@ def phase_kernels(card):
         n_copies = -(-COLD_BYTES // set_bytes)
         copies = [(pred.clone(), gt.clone()) for _ in range(n_copies)]
         turn = itertools.cycle(copies)
-        hot_ms = kernel_time_ms(lambda: saliency_reductions(pred, gt))
-        cold_ms = kernel_time_ms(lambda: saliency_reductions(*next(turn)))
+        hot_ms, hot_rec = kernel_time_ms(lambda: saliency_reductions(pred, gt))
+        cold_ms, cold_rec = kernel_time_ms(lambda: saliency_reductions(*next(turn)))
         plain = device_time_ms(lambda: saliency_reductions_plain(pred, gt))
         if plain is None:
             fail("torch.profiler recorded no kernel of the plain version")
@@ -361,14 +390,17 @@ def phase_kernels(card):
         bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / 67e12) * 1e3
         cluster = cluster_size(B, sms)
         log(f"[kernels] saliency B={B} C={cluster}: max_abs_err {err} | device time cold "
-            f"{cold_ms * 1e3} us ({n_copies} input copies), bound {bound_ms * 1e3} us "
-            f"(bytes, HBM), share of bound (bound/cold) {bound_ms / cold_ms:.3f} | hot "
-            f"(L2) {hot_ms * 1e3} us | plain {plain_ms * 1e3} us | wrapper call back "
+            f"{cold_ms * 1e3} us ({n_copies} input copies; {cold_rec} of 50 launches "
+            f"recorded), bound {bound_ms * 1e3} us (bytes, HBM), share of bound "
+            f"(bound/cold) {bound_ms / cold_ms:.3f} | hot (L2) {hot_ms * 1e3} us "
+            f"({hot_rec} of 50) | plain {plain_ms * 1e3} us | wrapper call back "
             f"to back {call_ms * 1e3} us | {card}")
         # ms is the cold time: the HBM byte bound holds only for inputs read
         # from HBM, and inputs hot in L2 can beat it
         rec[B] = dict(cluster=cluster, max_abs_err=err, ms=cold_ms, hot_ms=hot_ms,
-                      plain_ms=plain_ms, bound_ms=bound_ms, call_ms=call_ms)
+                      plain_ms=plain_ms, bound_ms=bound_ms, call_ms=call_ms,
+                      ms_launches_recorded=[cold_rec, 50],
+                      hot_ms_launches_recorded=[hot_rec, 50])
     return rec
 
 
@@ -1012,7 +1044,7 @@ def phase_profile(nav, items, card):
         time_layers(layers, card, "[profile]", B)
 
 
-GRAD_BATCHES = (SERVE_BATCH, T_STEPS * SERVE_BATCH, 15 * 16)
+GRAD_BATCHES = (SERVE_BATCH, 16, T_STEPS * SERVE_BATCH, 15 * 16)
 #: a two-conv Darknet for the card-vs-CPU train step (the 224 px input to a
 #: (32, 7, 7) feature map, as the full tower's (512, 7, 7))
 TINY_DARKNET_CFG = """
@@ -1086,8 +1118,8 @@ def phase_grad_kernel(card):
         n_copies = -(-COLD_BYTES // set_bytes)
         copies = [(pred.clone(), gt.clone()) for _ in range(n_copies)]
         turn = itertools.cycle(copies)
-        hot_ms = kernel_time_ms(lambda: saliency_nss_grad(pred, gt, stats, up))
-        cold_ms = kernel_time_ms(lambda: saliency_nss_grad(*next(turn), stats, up))
+        hot_ms, hot_rec = kernel_time_ms(lambda: saliency_nss_grad(pred, gt, stats, up))
+        cold_ms, cold_rec = kernel_time_ms(lambda: saliency_nss_grad(*next(turn), stats, up))
         plain = device_time_ms(lambda: saliency_nss_grad_plain(pred, gt, up))
         if plain is None:
             fail("torch.profiler recorded no kernel of the plain gradient")
@@ -1096,32 +1128,31 @@ def phase_grad_kernel(card):
         flops = 5 * pred.numel()
         bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / 67e12) * 1e3
         log(f"[grad_kernel] N={N}: max_abs_err/max|grad| {err} | device time cold "
-            f"{cold_ms * 1e3} us ({n_copies} input copies), bound {bound_ms * 1e3} us "
-            f"(bytes, HBM), share of bound (bound/cold) {bound_ms / cold_ms:.3f} | hot "
-            f"(L2) {hot_ms * 1e3} us | plain (autograd of the plain reductions) "
+            f"{cold_ms * 1e3} us ({n_copies} input copies; {cold_rec} of 50 launches "
+            f"recorded), bound {bound_ms * 1e3} us (bytes, HBM), share of bound "
+            f"(bound/cold) {bound_ms / cold_ms:.3f} | hot (L2) {hot_ms * 1e3} us "
+            f"({hot_rec} of 50) | plain (autograd of the plain reductions) "
             f"{plain[0] * 1e3} us in {plain[1]:g} kernels | {card}")
         rec[N] = dict(max_abs_err=err, ms=cold_ms, hot_ms=hot_ms, plain_ms=plain[0],
-                      bound_ms=bound_ms)
+                      bound_ms=bound_ms, ms_launches_recorded=[cold_rec, 50],
+                      hot_ms_launches_recorded=[hot_rec, 50])
     return rec
 
 
 TRAIN_ROOT = os.path.join(ROOT, "build", "chip_smoke_train")
+PROD_ROOT = os.path.join(ROOT, "build", "chip_smoke_production")
+PROD_BATCH = 16  # --preset production's batch_size
 
 
-def phase_train(card, device="cuda", extra_args=()):
-    """The port's train CLI (``python -m avdn_tpu_torch.cli.train_et`` with no
-    preset: fp32 towers, the exact render, ``--feedback student``, the fused
-    teacher, AdamW) on the phase-5 dataset's train split, from the seed's
-    random init, at full width, B = 8, T = 10: one interval of 3 steps
-    (``--iters 3 --log_every 1`` over 24 items), its checkpoint and the
-    validation (the eval defaults); then ``--resume_file latest`` and one
-    more interval. Checks every loss and grad norm finite, the checkpoints
-    written and loadable into ``valid()``'s models, the resume's steps; on
-    the card the launches of the forward and backward saliency kernels per
-    train step, and reports the median step wall (unprofiled steps), the
-    peak memory, and one step under torch.profiler (device idle share, top
-    kernels). Returns ``({path: forward launches}, {path: backward
-    launches}, summary)``."""
+def _train_twice(tag, root, out, flags, device, card, batch):
+    """The train CLI twice on ``root``'s dataset into ``out``: ``--iters 3
+    --log_every 1`` (one interval of 3 steps, its checkpoint and
+    validation), then ``--resume_file latest`` and 3 more steps. Each step
+    timed (synchronised) with its saliency launches, forward and backward;
+    on the card the fifth step (the resume run's second) under
+    torch.profiler. Checks 6 finite steps, the checkpoints written and
+    loadable into ``valid()``'s models and the resume. Returns ``(steps,
+    {path: forward launches}, {path: backward launches}, peak GiB)``."""
     import shutil
 
     import numpy as np
@@ -1134,7 +1165,7 @@ def phase_train(card, device="cuda", extra_args=()):
     from torch.profiler import ProfilerActivity, profile
 
     on_card = torch.device(device).type == "cuda"
-    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
     steps = []  # per step: wall, forward and backward launches, profiled or not
     real = loop.make_train_step
 
@@ -1148,30 +1179,29 @@ def phase_train(card, device="cuda", extra_args=()):
             t0 = time.perf_counter()
             if profiled:
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    out = step(*sa, **skw)
+                    res = step(*sa, **skw)
                     sync(device)
                 steps.append(dict(prof=prof))
             else:
-                out = step(*sa, **skw)
+                res = step(*sa, **skw)
                 sync(device)
                 steps.append({})
             steps[-1].update(wall=time.perf_counter() - t0,
                              fwd=saliency_stats.launches - fwd,
                              bwd=saliency_nss_grad.launches - bwd)
-            return out
+            return res
 
         return observed
 
-    base = ["--root_dir", os.path.join(VALID_ROOT, "data"),
-            "--output_dir", os.path.join(TRAIN_ROOT, "out"), "--seed", str(SEED),
-            "--max_action_len", str(T_STEPS), "--batch_size", str(SERVE_BATCH),
-            "--iters", "3", "--log_every", "1", *extra_args]
+    base = ["--root_dir", root, "--output_dir", out, "--seed", str(SEED),
+            "--max_action_len", str(T_STEPS), "--batch_size", str(batch),
+            "--iters", "3", "--log_every", "1", *flags]
     fwd_by_path, bwd_by_path, histories = {}, {}, []
     loop.make_train_step = make_observed_step
     try:
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        for name, extra in (("train", []), ("train_resume", ["--resume_file", "latest"])):
+        for name, extra in ((tag, []), (tag + "_resume", ["--resume_file", "latest"])):
             saliency_stats.launches = saliency_nss_grad.launches = 0
             t0 = time.perf_counter()
             state, history = cli_main(base + extra, device=device)
@@ -1180,7 +1210,7 @@ def phase_train(card, device="cuda", extra_args=()):
             fwd_by_path[name] = saliency_stats.launches
             bwd_by_path[name] = saliency_nss_grad.launches
             histories += history
-            log(f"[train] {name}: {len(history)} steps to step {state.step} in "
+            log(f"[{tag}] {name}: {len(history)} steps to step {state.step} in "
                 f"{wall:.3f} s (with the checkpoint and the validation), saliency "
                 f"launches forward {fwd_by_path[name]} backward {bwd_by_path[name]} | "
                 f"{card}")
@@ -1189,62 +1219,197 @@ def phase_train(card, device="cuda", extra_args=()):
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
 
     if state.step != 6 or len(histories) != 6:
-        fail(f"[train] ended at step {state.step} after {len(histories)} steps, "
+        fail(f"[{tag}] ended at step {state.step} after {len(histories)} steps, "
              "expected 6 (3, then 3 more after the resume)")
     for i, m in enumerate(histories):
         if not all(np.isfinite(v) for v in m.values()):
-            fail(f"[train] step {i + 1}: non-finite {m}")
-    ckpt_dir = os.path.join(TRAIN_ROOT, "out", "ckpts")
+            fail(f"[{tag}] step {i + 1}: non-finite {m}")
+        steps[i]["metrics"] = m
+    ckpt_dir = os.path.join(out, "ckpts")
     names = sorted(os.listdir(ckpt_dir))
     if names != ["best_val_unseen.pt", "latest_dict_3.pt", "latest_dict_6.pt"]:
-        fail(f"[train] checkpoints written: {names}")
-    args = build_args(os.path.join(TRAIN_ROOT, "load"), extra_args)
+        fail(f"[{tag}] checkpoints written: {names}")
+    args = build_args(os.path.join(out, "load"), [*flags, "--root_dir", root])
     for name in ("latest_dict_6.pt", "best_val_unseen.pt"):
         load_agent_weights(loop.build_models(args, torch.device(device)),
                            load_reference_agent(os.path.join(ckpt_dir, name)))
-    with open(os.path.join(TRAIN_ROOT, "out", "logs", "train.txt")) as f:
+    with open(os.path.join(out, "logs", "train.txt")) as f:
         resumed = "latest_dict_3.pt, iteration 3" in f.read()
     if not resumed:
-        fail("[train] the resume run did not load latest_dict_3.pt")
+        fail(f"[{tag}] the resume run did not load latest_dict_3.pt")
+    return steps, fwd_by_path, bwd_by_path, peak_gb
+
+
+def _train_summary(tag, steps, peak_gb, card, on_card):
+    """Per-step lines, the saliency launches held to T + 1 forward and T
+    backward a step (T in the student pass, one at T·B in the fused teacher
+    pass; backward only where the loss holds −NSS, the student pass: the
+    teacher pass runs with nss_w = 0), the median wall of the unprofiled
+    steps after the first (which builds and tunes) with the first apart,
+    the peak memory and the profiled step (device idle share, launches,
+    top kernels)."""
     if on_card:
-        # per step: T forward launches in the student pass and one at T·B in
-        # the fused teacher pass; backward only where the loss holds −NSS,
-        # the student pass (the teacher pass runs with nss_w = 0)
         for i, st in enumerate(steps):
             if (st["fwd"], st["bwd"]) != (T_STEPS + 1, T_STEPS):
-                fail(f"[train] step {i + 1}: saliency launches forward {st['fwd']} "
+                fail(f"[{tag}] step {i + 1}: saliency launches forward {st['fwd']} "
                      f"backward {st['bwd']}, expected {T_STEPS + 1}, {T_STEPS}")
-    for i, (st, m) in enumerate(zip(steps, histories)):
-        log(f"[train] step {i + 1}: wall {st['wall'] * 1e3:.1f} ms"
+    for i, st in enumerate(steps):
+        m = st["metrics"]
+        log(f"[{tag}] step {i + 1}: wall {st['wall'] * 1e3:.1f} ms"
             f"{' (profiled)' if 'prof' in st else ''}, loss {m['loss']:.6f}, grad norm "
             f"vln {m['grad_norm_vln']:.6f} bert {m['grad_norm_bert']:.6f}, saliency "
             f"launches forward {st['fwd']} backward {st['bwd']}")
-    walls = [st["wall"] for st in steps if "prof" not in st]
+    walls = [st["wall"] for st in steps[1:] if "prof" not in st]
     summary = dict(step_wall_ms_median=statistics.median(walls) * 1e3,
-                   peak_gb=peak_gb, steps=len(steps))
+                   first_step_ms=steps[0]["wall"] * 1e3, peak_gb=peak_gb,
+                   steps=len(steps), saliency_launches_per_step=[T_STEPS + 1, T_STEPS])
     if on_card:
         prof_step = next(st for st in steps if "prof" in st)
         kernels = kernel_events(prof_step["prof"])
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        n_launches = sum(e.count for e in kernels)
         summary.update(profiled_wall_ms=prof_step["wall"] * 1e3, busy_ms=busy_ms,
+                       launches=n_launches,
                        idle=1 - busy_ms / (summary["step_wall_ms_median"]))
-        log(f"[train] median step wall {summary['step_wall_ms_median']:.1f} ms over "
-            f"{len(walls)} unprofiled steps (the first builds and tunes); profiled step: "
-            f"kernels {busy_ms:.3f} ms in {sum(e.count for e in kernels)} launches, "
-            f"device idle {summary['idle']:.3f} of the median wall; peak memory "
-            f"{peak_gb:.2f} GiB (max_memory_allocated) | {card}")
+        log(f"[{tag}] median step wall {summary['step_wall_ms_median']:.1f} ms over "
+            f"{len(walls)} unprofiled steps after the first ({summary['first_step_ms']:.1f}"
+            f" ms, it builds and tunes); profiled step: kernels {busy_ms:.3f} ms in "
+            f"{n_launches} launches, device idle {summary['idle']:.3f} of the median "
+            f"wall; peak memory {peak_gb:.2f} GiB (max_memory_allocated) | {card}")
         for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                         reverse=True)[:12]:
-            log(f"[train]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+            log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
                 f"{e.key[:90]}")
-    return fwd_by_path, bwd_by_path, summary
+    return summary
 
 
-def phase_train_parity(card, devices=("cuda", "cpu")):
-    """One train step's loss and gradients at tiny width (BERT 2×64, the
-    tiny Darknet, trunk 1×64, B = 2, T = 3, every dropout rate 0, TF32 off)
-    on the card and on the CPU (plain versions) from the same weights and
-    batch: the loss and the three groups' grad norms within 1e-4 relative."""
+def phase_train(card, device="cuda", extra_args=()):
+    """The port's train CLI (``python -m avdn_tpu_torch.cli.train_et`` with no
+    preset: fp32 towers, the exact render, ``--feedback student``, the fused
+    teacher, AdamW) on the phase-5 dataset's train split, from the seed's
+    random init, at full width, B = 8, T = 10 (``_train_twice``: 3 steps, a
+    checkpoint and a validation at the eval defaults, a resume and 3 more),
+    then ``_train_summary``. Returns ``({path: forward launches}, {path:
+    backward launches}, summary)``."""
+    import torch
+
+    steps, fwd, bwd, peak = _train_twice(
+        "train", os.path.join(VALID_ROOT, "data"), os.path.join(TRAIN_ROOT, "out"),
+        list(extra_args), device, card, SERVE_BATCH)
+    return fwd, bwd, _train_summary("train", steps, peak, card,
+                                    torch.device(device).type == "cuda")
+
+
+def phase_train_production(card, device="cuda", extra_args=()):
+    """The production recipe through the train CLI: ``--preset production``
+    (batch 16, bf16 towers, the two-pass render in both rollouts, ``--remat``
+    with the ``dots`` policy) at full width, T = 10, on a dataset of the
+    phase-5 val splits and 48 train items (3 steps an epoch), from the
+    seed's random init: ``_train_twice`` and ``_train_summary`` (on the card
+    the student pass launches the forward kernel at N = 16 ten times and its
+    backward ten times a step, the fused teacher the forward once at N =
+    160). Then one step at B = 16 with and without remat, from the same
+    weights and batch: the peak memory of each (``max_memory_allocated``
+    after a reset) and the wall of the second of two steps."""
+    import torch
+
+    from avdn_tpu_torch.config import parse_args
+    from avdn_tpu_torch.data.batcher import make_train_batch
+    from avdn_tpu_torch.data.maps import DeviceMapBank
+    from avdn_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from avdn_tpu_torch.serve import Navigator
+    from avdn_tpu_torch.train.loop import (batcher_config, build_models, init_state,
+                                           resolve_render_crop, train_bf16,
+                                           train_config_from_args)
+    from avdn_tpu_torch.train.step import create_train_state, make_train_step
+
+    on_card = torch.device(device).type == "cuda"
+    data = os.path.join(PROD_ROOT, "data")
+    anno = os.path.join(data, "AVDN", "annotations")
+    os.makedirs(anno, exist_ok=True)
+    train_items = make_items(SEED + 5, prefix="p") + make_items(SEED + 6, prefix="q")
+    with open(os.path.join(anno, "train_data.json"), "w") as f:
+        json.dump(train_items, f)
+    src = os.path.join(VALID_ROOT, "data", "AVDN")
+    for split in ("val_seen", "val_unseen"):
+        with open(os.path.join(src, "annotations", f"{split}_data.json")) as f:
+            part = json.load(f)
+        with open(os.path.join(anno, f"{split}_data.json"), "w") as f:
+            json.dump(part, f)
+    images = os.path.join(data, "AVDN", "train_images")
+    if not os.path.exists(images):
+        os.symlink(os.path.join(src, "train_images"), images)
+
+    flags = ["--preset", "production", *extra_args]
+    steps, fwd, bwd, peak = _train_twice(
+        "train_production", data, os.path.join(PROD_ROOT, "out"), flags, device, card,
+        PROD_BATCH)
+    summary = _train_summary("train_production", steps, peak, card, on_card)
+
+    # one step with and without remat from the same weights and batch
+    args = resolve_render_crop(parse_args(flags + [
+        "--root_dir", data, "--output_dir", os.path.join(PROD_ROOT, "mem"),
+        "--max_action_len", str(T_STEPS)]))
+    if not (args.batch_size == PROD_BATCH and train_bf16(args) and args.remat
+            and args.remat_policy == "dots" and args.render_twopass):
+        fail(f"[train_production] --preset production gave {args}")
+    with open(os.path.join(args.train_anno_dir, "train_data.json")) as f:
+        items = [Navigator._normalize_item(it) for it in json.load(f)[:PROD_BATCH]]
+    bank = DeviceMapBank(args.train_dataset_dir, (args.map_bank_px,) * 2,
+                         n_slots=args.map_bank_slots, device=device)
+    arr, slots = bank.prepare(items)
+    batch, _ = make_train_batch(items, WordPieceTokenizer.load(None), slots,
+                                batcher_config(args), device=device)
+    for remat in (True, False):
+        args.remat = remat
+        cfg = train_config_from_args(args)
+        models = build_models(args, torch.device(device), bf16=True)
+        init_state(models, torch.Generator().manual_seed(SEED))
+        state = create_train_state(cfg, *models)
+        step = make_train_step(cfg, *models)
+        gen = torch.Generator(device).manual_seed(SEED + 1)
+        sync(device)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for i in range(2):
+            t0 = time.perf_counter()
+            m = step(state, arr, batch, gen)
+            sync(device)
+            wall = time.perf_counter() - t0
+        gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+        key = "remat_dots" if remat else "no_remat"
+        summary[f"{key}_peak_gb"] = gb
+        summary[f"{key}_step_ms"] = wall * 1e3
+        log(f"[train_production] one step at B = {PROD_BATCH}, "
+            f"{'--remat dots' if remat else 'no remat'}: peak memory {gb:.2f} GiB "
+            f"(max_memory_allocated, the models and Adam moments included), second "
+            f"step {wall * 1e3:.1f} ms, loss {float(m['loss']):.6f} | {card}")
+        del models, state, step
+    return fwd, bwd, summary
+
+
+#: the card-vs-CPU train step's configurations: the reference numerics, and
+#: the production recipe's (bf16 towers, the two-pass render, dots remat)
+#: with fp32 render weights on both sides (the CPU's rule) and teacher
+#: feedback through the step loop, so that the views and the trajectory do
+#: not depend on the towers' roundings and the remat runs in every step
+PARITY_CONFIGS = (
+    ("fp32", [], 1e-4),
+    ("production", ["--bf16", "True", "--render_twopass", "True", "--render_bf16",
+                    "False", "--render_crop", "1024", "--remat", "True",
+                    "--remat_policy", "dots", "--feedback", "teacher",
+                    "--fused_teacher", "False"], 1e-3),
+)
+#: the production step's control: the same flags with fp32 towers, on the
+#: CPU, which the card's bf16 step must differ from by more than the bar
+PARITY_CONTROL = ("production", "fp32 towers", ["--bf16", "False"])
+
+
+def _tiny_train_step(name, flags, device):
+    """One train step's loss and the three groups' grad norms at tiny width
+    (BERT 2×64, the tiny Darknet, trunk 1×64, B = 2, T = 3, every dropout
+    rate 0) on ``device`` under ``flags``, from the seeded weights."""
     import torch
 
     from avdn_tpu_torch.data.batcher import make_train_batch
@@ -1254,11 +1419,12 @@ def phase_train_parity(card, devices=("cuda", "cpu")):
     from avdn_tpu_torch.models.layers import Dropout
     from avdn_tpu_torch.serve import Navigator
     from avdn_tpu_torch.train.loop import (batcher_config, build_models, init_state,
-                                           train_config_from_args)
+                                           train_bf16, train_config_from_args)
     from avdn_tpu_torch.train.optim import global_norm
     from avdn_tpu_torch.train.step import make_loss_fn
 
     cfg_path = os.path.join(TRAIN_ROOT, "tiny_darknet.cfg")
+    os.makedirs(TRAIN_ROOT, exist_ok=True)
     with open(cfg_path, "w") as f:
         f.write(TINY_DARKNET_CFG)
     args = build_args(os.path.join(TRAIN_ROOT, "parity"), [
@@ -1266,40 +1432,68 @@ def phase_train_parity(card, devices=("cuda", "cpu")):
         "--bert_layers", "2", "--encoder_heads", "4", "--encoder_layers", "1",
         "--darknet_model_file", cfg_path, "--max_instr_len", "32",
         "--dialog_pad", "64", "--max_action_len", "3", "--batch_size", "2",
-        "--map_bank_slots", "2"])
+        "--map_bank_slots", "2", *flags])
     use_fp32_numerics()
     with open(os.path.join(args.train_anno_dir, "train_data.json")) as f:
         items = [Navigator._normalize_item(it) for it in json.load(f)[:2]]
-    cfg = train_config_from_args(args)
-    res = {}
-    for device in devices:
-        models = build_models(args, torch.device(device))
-        init_state(models, torch.Generator().manual_seed(SEED))
-        for m in models:
-            for mod in m.modules():
-                if isinstance(mod, Dropout):
-                    mod.p = 0.0
-            m.train()
-        bank = DeviceMapBank(args.train_dataset_dir, (args.map_bank_px,) * 2,
-                             n_slots=args.map_bank_slots, device=device)
-        arr, slots = bank.prepare(items)
-        batch, _ = make_train_batch(items, WordPieceTokenizer.load(None), slots,
-                                    batcher_config(args), device=device)
-        t0 = time.perf_counter()
-        loss = make_loss_fn(cfg, *models)(batch, arr,
-                                          torch.Generator(device).manual_seed(SEED), 2)
-        loss.backward()
-        res[device] = [float(loss.detach())] + [
-            float(global_norm([torch.zeros_like(p) if p.grad is None else p.grad
-                               for p in m.parameters()])) for m in models]
-        log(f"[train_parity] {device}: loss {res[device][0]!r}, grad norms bert "
-            f"{res[device][1]!r} darknet {res[device][2]!r} vln {res[device][3]!r} "
-            f"({time.perf_counter() - t0:.3f} s)")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(res[devices[0]], res[devices[1]]))
-    if not rel <= 1e-4:
-        fail(f"[train_parity] card vs CPU: loss / grad norms differ by {rel} relative")
-    log(f"[train_parity] card vs CPU one train step at tiny width, dropout 0, TF32 "
-        f"off: loss and grad norms within {rel:.3e} relative | {card}")
+    models = build_models(args, torch.device(device), bf16=train_bf16(args))
+    init_state(models, torch.Generator().manual_seed(SEED))
+    for m in models:
+        for mod in m.modules():
+            if isinstance(mod, Dropout):
+                mod.p = 0.0
+        m.train()
+    bank = DeviceMapBank(args.train_dataset_dir, (args.map_bank_px,) * 2,
+                         n_slots=args.map_bank_slots, device=device)
+    arr, slots = bank.prepare(items)
+    batch, _ = make_train_batch(items, WordPieceTokenizer.load(None), slots,
+                                batcher_config(args), device=device)
+    t0 = time.perf_counter()
+    loss = make_loss_fn(train_config_from_args(args), *models)(
+        batch, arr, torch.Generator(device).manual_seed(SEED), 2)
+    loss.backward()
+    res = [float(loss.detach())] + [
+        float(global_norm([torch.zeros_like(p) if p.grad is None else p.grad
+                           for p in m.parameters()])) for m in models]
+    log(f"[train_parity] {name} {device}: loss {res[0]!r}, grad norms bert {res[1]!r} "
+        f"darknet {res[2]!r} vln {res[3]!r} ({time.perf_counter() - t0:.3f} s)")
+    return res
+
+
+def _rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def phase_train_parity(card, devices=("cuda", "cpu")):
+    """One train step's loss and gradients at tiny width (``_tiny_train_step``,
+    TF32 off) on the card and on the CPU (plain versions) from the same
+    weights and batch, in each of ``PARITY_CONFIGS``: the loss and the three
+    groups' grad norms within 1e-4 relative in fp32, and within 1e-3 in the
+    production recipe's bf16 (cuBLAS/cuDNN and the CPU's bf16 kernels round
+    their sums at other points). The production bar is a few times the
+    readings of sound runs (2.553e-4 on an H100, PERF.md), and the control
+    (``PARITY_CONTROL``: the CPU's step with fp32 towers, which moves the
+    grad norms by about 2e-2) must fall outside it, or the bar could not
+    tell a card path that lost bf16's rounding points."""
+    for name, flags, tol in PARITY_CONFIGS:
+        res = {device: _tiny_train_step(name, flags, device) for device in devices}
+        rel = _rel(res[devices[0]], res[devices[1]])
+        if not rel <= tol:
+            fail(f"[train_parity] {name}: card vs CPU loss / grad norms differ by "
+                 f"{rel} relative (bar {tol})")
+        log(f"[train_parity] {name}: card vs CPU one train step at tiny width, dropout "
+            f"0, TF32 off: loss and grad norms within {rel:.3e} relative (bar {tol}) "
+            f"| {card}")
+        if name == PARITY_CONTROL[0]:
+            ctl = _tiny_train_step(f"{name} with {PARITY_CONTROL[1]} (control)",
+                                   flags + PARITY_CONTROL[2], devices[1])
+            rel_ctl = _rel(res[devices[0]], ctl)
+            if not rel_ctl > tol:
+                fail(f"[train_parity] {name}: the control ({PARITY_CONTROL[1]} on the "
+                     f"{devices[1]}) is within the bar: {rel_ctl} relative (bar {tol})")
+            log(f"[train_parity] {name} control: card's step vs the {devices[1]}'s "
+                f"with {PARITY_CONTROL[1]}: {rel_ctl:.3e} relative, outside the bar "
+                f"{tol} | {card}")
 
 
 def main() -> None:
@@ -1335,6 +1529,10 @@ def main() -> None:
     train_fwd, train_bwd, train_summary = phase_train(card)
     launches.update(train_fwd)
     done("train")
+    prod_fwd, prod_bwd, prod_summary = phase_train_production(card)
+    launches.update(prod_fwd)
+    train_bwd.update(prod_bwd)
+    done("train production")
     phase_train_parity(card)
     done("train parity")
     phase_render(card, nav_def, chunks)
@@ -1360,6 +1558,7 @@ def main() -> None:
         "launches_by_path": launches,
         "max_abs_err": max(r["max_abs_err"] for r in krec.values()),
         "ms": k["ms"],
+        "ms_launches_recorded": k["ms_launches_recorded"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"],
         "bound_by": "bytes",
@@ -1377,6 +1576,7 @@ def main() -> None:
         "launches_by_path": train_bwd,
         "max_abs_err": max(r["max_abs_err"] for r in grec.values()),
         "ms": g["ms"],
+        "ms_launches_recorded": g["ms_launches_recorded"],
         "plain_ms": g["plain_ms"],
         "bound_ms": g["bound_ms"],
         "bound_by": "bytes",
@@ -1384,6 +1584,7 @@ def main() -> None:
         "shape": [SERVE_BATCH, 224, 224],
         "by_batch": {str(N): r for N, r in grec.items()},
         "train_step": train_summary,
+        "train_step_production": prod_summary,
     }]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

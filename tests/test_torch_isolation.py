@@ -201,23 +201,34 @@ def test_fused_teacher_rollout_raises(tmp_path):
 
 
 def test_driver_rejects_what_it_cannot_run(tmp_path, monkeypatch):
-    """The drivers raise, naming the ROADMAP.md item, for the production
-    train recipe (``--preset production``, ``--bf16 True`` training,
-    ``--remat``), orbax checkpoints and multi-process runs; ``--resume_file
-    latest`` without a checkpoint is a missing file in ``valid()``."""
+    """The drivers raise, naming the ROADMAP.md item, for orbax checkpoints
+    and multi-process runs, and on a malformed ``--optim`` or
+    ``--remat_policy``; ``--resume_file latest`` without a checkpoint is a
+    missing file in ``valid()``. The production train recipe
+    (``--preset production``: batch 16, ``--bf16 True`` training, the
+    two-pass render in training, ``--remat`` dots) is accepted, with
+    explicit flags over the preset's values."""
     from avdn_tpu_torch.cli.train_et import main as cli_main
-    from avdn_tpu_torch.config import Args, postprocess_args
-    from avdn_tpu_torch.train.loop import train_config_from_args, valid
+    from avdn_tpu_torch.config import Args, parse_args, postprocess_args
+    from avdn_tpu_torch.train.loop import (train_bf16, train_config_from_args,
+                                           train_render_twopass, valid)
     from avdn_tpu_torch.train.step import check_train_supported
 
     base = ["--output_dir", str(tmp_path), "--render_twopass", "False",
             "--bf16", "False"]
-    for flags in (["--preset", "production"], ["--bf16", "True"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
-            cli_main(["--output_dir", str(tmp_path)] + flags, device="cpu")
-    args = postprocess_args(Args(output_dir=str(tmp_path), remat=True))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
-        check_train_supported(train_config_from_args(args))
+    args = parse_args(["--output_dir", str(tmp_path), "--preset", "production"])
+    cfg = train_config_from_args(args)
+    check_train_supported(cfg)
+    assert (args.batch_size, train_bf16(args), train_render_twopass(args), cfg.remat,
+            cfg.remat_policy) == (16, True, True, True, "dots")
+    assert cfg.rollout_cfg(teacher=False, train=True).remat
+    assert not cfg.rollout_cfg(teacher=False).remat  # eval never rematerialises
+    args = parse_args(["--output_dir", str(tmp_path), "--preset", "production",
+                       "--batch_size", "32", "--remat", "False"])
+    assert (args.batch_size, args.remat, train_bf16(args)) == (32, False, True)
+    with pytest.raises(ValueError, match="remat_policy"):
+        check_train_supported(train_config_from_args(postprocess_args(
+            Args(output_dir=str(tmp_path), remat=True, remat_policy="some"))))
     with pytest.raises(ValueError, match="optim"):
         train_config_from_args(postprocess_args(Args(output_dir=str(tmp_path),
                                                      optim="rms")))

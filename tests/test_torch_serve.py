@@ -7,6 +7,11 @@ padded).
 Tolerances: the same prediction keys and step counts; ``path_corners`` and
 ``actions`` within 1e-4 relative; ``eval_metrics`` SR and oracle SR equal,
 SPL and GP within 1e-4.
+
+``--resume_file latest`` serves the newest checkpoint that the port's own
+``train()`` wrote (one interval at B = 8, T = 2), weight for weight, and
+raises ``FileNotFoundError`` naming the checkpoint directory when there is
+none (as the JAX ``Navigator`` does).
 """
 
 import json
@@ -15,6 +20,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from fixtures import write_fixture_dataset
 from test_e2e_loop import TINY_DARKNET_CFG, make_args
@@ -88,3 +94,50 @@ def test_same_eval_metrics(preds):
     np.testing.assert_allclose(got["spl"], want["spl"], atol=1e-4)
     np.testing.assert_allclose(got["gp"], want["gp"], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got["oracle_gp"], want["oracle_gp"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def port_trained(tmp_path_factory):
+    """One interval of the port's own ``train()`` (B = 8, T = 2, demb 64,
+    the exact render) on the shared fixture dataset: its flags and state."""
+    from avdn_tpu_torch.cli.train_et import main
+    from torch_shared import fixture_dataset, port_argv
+
+    root, cfg_path = fixture_dataset(tmp_path_factory)
+    out = str(tmp_path_factory.mktemp("serve_latest") / "out")
+    args = make_args(root, out, cfg_path, render_twopass=False, batch_size=8)
+    argv = port_argv(args) + ["--iters", "1", "--log_every", "1", "--lr", "1e-3"]
+    state, _ = main(argv, device="cpu")
+    return argv, state
+
+
+def test_navigator_serves_latest_training_checkpoint(port_trained):
+    """``--resume_file latest`` resolves to the newest ``latest_dict_*.pt``
+    that ``train()`` wrote, and the Navigator serves those weights."""
+    from avdn_tpu_torch.config import parse_args
+    from avdn_tpu_torch.serve import Navigator
+
+    argv, state = port_trained
+    args = parse_args(argv + ["--resume_file", "latest"])
+    nav = Navigator(args, serve_batch=2, device="cpu")
+    assert os.path.basename(args.resume_file) == f"latest_dict_{state.step}.pt"
+    for model, trained in zip((nav.bert, nav.darknet, nav.vln), state.models()):
+        want = trained.state_dict()
+        for name, value in model.state_dict().items():
+            assert torch.equal(value, want[name]), name
+    items = json.load(open(os.path.join(args.val_anno_dir, "val_seen_data.json")))[:3]
+    preds = nav.navigate(items)
+    assert len(preds) == 3
+    assert all(len(p["path_corners"]) >= 1 for p in preds.values())
+
+
+def test_navigator_latest_without_checkpoint_raises(port_trained, tmp_path):
+    from avdn_tpu_torch.config import parse_args
+    from avdn_tpu_torch.serve import Navigator
+
+    argv, _ = port_trained
+    args = parse_args(argv + ["--resume_file", "latest", "--output_dir",
+                              str(tmp_path / "fresh")])
+    with pytest.raises(FileNotFoundError, match="no latest_dict_") as err:
+        Navigator(args, serve_batch=2, device="cpu")
+    assert args.ckpt_dir.startswith(str(tmp_path)) and args.ckpt_dir in str(err.value)

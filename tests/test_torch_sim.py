@@ -170,3 +170,62 @@ def test_render_batch_straddling_border():
     np.testing.assert_allclose(gv.numpy(), wv, rtol=0, atol=1e-3)
     np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
     assert 0 < gs.numpy().mean() < 1
+
+
+def _projective_quads(rng, n, Hm):
+    """n integer-cornered view quads whose opposite sides differ (the
+    homography's last row is not (0, 0, 1)), in map pixel (x, y)."""
+    c = rng.uniform(0.3 * Hm, 0.7 * Hm, (n, 2))
+    base = np.array([[1, -1], [1, 1], [-1, 1], [-1, -1]], np.float64)
+    q = (c[:, None, :] + base * rng.uniform(30, 90, (n, 1, 1))
+         + rng.uniform(-15, 15, (n, 4, 2)))
+    return np.round(q).astype(np.float32)
+
+
+@pytest.mark.parametrize("B", [1, 2, 5])
+def test_render_projective_quads(B):
+    """Projective quads at one, two and five items per call (XLA's CPU dot
+    for ``pts @ H.T`` leaves some columns without an FMA at one and two;
+    sim/render.py ``_XLA_UNFUSED``): the source coordinates equal JAX's bit
+    for bit, the views within 1e-3 on the 0–255 scale, the saliency equal,
+    and the two-pass render's iso-row coefficients equal JAX's and its
+    float32 views within 1e-3 (for a lone item XLA folds the positions'
+    1/223 into the homography's scalars, ``warp2pass._iso_row_coeffs``)."""
+    from avdn_tpu.sim import warp2pass as jwarp
+    from avdn_tpu_torch.sim import warp2pass
+    from avdn_tpu_torch.sim.render import square_to_quad_homography, view_to_map_coords
+
+    rng = np.random.default_rng(11 + B)
+    N, Hm, C = 2, 400, 3
+    bank = rng.integers(0, 256, (N, Hm, Hm, 3), np.uint8)
+    quads = _projective_quads(rng, B, Hm)
+    H = square_to_quad_homography(t(quads)).numpy()
+    assert (np.abs(H[:, 2, :2]) > 1e-6).all()  # g, h ≠ 0: projective
+    want = np.asarray(jax.jit(jax.vmap(lambda q: jrender.view_to_map_coords(q, 224)))(
+        jnp.asarray(quads)))
+    np.testing.assert_array_equal(view_to_map_coords(t(quads)).numpy(), want)
+
+    circles = np.zeros((B, C, 3), np.float32)
+    circles[..., :2] = rng.uniform(0.3 * Hm, 0.7 * Hm, (B, C, 2))
+    circles[..., 2] = rng.integers(10, 60, (B, C))
+    n_circles = np.full(B, C, np.int32)
+    map_idx = rng.integers(0, N, B).astype(np.int32)
+    args = (bank, map_idx, quads, circles, n_circles)
+    wv, ws = jrender.render_batch(*(jnp.asarray(x) for x in args))
+    gv, gs = render_batch(*(t(x) for x in args))
+    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+
+    Hj = jnp.asarray(H)
+    ja, jb = (np.asarray(x) for x in jax.jit(jax.vmap(
+        lambda h: jwarp._iso_row_coeffs(h, 224)))(Hj))
+    pa, pb = (x.numpy() for x in warp2pass._iso_row_coeffs(t(H), 224))
+    for got, ref in ((pa, ja), (pb, jb)):
+        ulps = np.abs(got.view(np.int32).astype(np.int64) - ref.view(np.int32))
+        assert ulps.max() == 0, ulps.max()
+    wv2, ws2 = jwarp.render_batch_twopass(*(jnp.asarray(x) for x in args),
+                                          crop_hw=256, bf16=False)
+    gv2, gs2 = warp2pass.render_batch_twopass(*(t(x) for x in args), crop_hw=256,
+                                              bf16=False)
+    np.testing.assert_allclose(gv2.numpy(), np.asarray(wv2), rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(gs2.numpy(), np.asarray(ws2))

@@ -13,15 +13,9 @@ port runs ``train/step.py:make_loss_fn`` with every dropout rate set to 0
 weights (the port's random init, with randomised BatchNorm running
 statistics, carried to flax by the JAX package's own
 ``compat/torch_import.py``: no JAX init is compiled) and the same items of
-the fixture's train split, and both towers see the same views: the port's
-rollouts are fed the views that JAX's jitted loss rendered
-(``collect_views``). On these items' projective view quads (integer corners
-whose opposite sides differ, so the homography's last row is not (0, 0, 1))
-the port's source coordinates differ from XLA's by 1–2 ulp at ~2 % of the
-pixels, and its views by up to 5.5e-3 on the 0–255 scale (an open render
-fault, ROADMAP.md queue 3); through the leaky ReLUs' kinks that alone moves
-the vision tower's gradient by ~1e-3 of its largest value at T = 3 (with
-JAX's views: 2.5e-5).
+the fixture's train split, and each renders its own views (the exact render
+on these items' projective view quads; ``tests/test_torch_sim.py`` holds the
+port's source coordinates bit-equal to XLA's).
 
 Tolerances: the loss within 1e-4 relative (the two sides draw the loss's
 1e-5 heading jitter from different generators); every gradient leaf of the
@@ -69,15 +63,15 @@ class _JaxState:
         self.vln_params = vln["params"]
 
 
-def _both_models(args, pargs, seed=0):
+def _both_models(args, pargs, seed=0, bf16=False):
     """The port's models (random init, BatchNorm statistics randomised) and
     the JAX package's flax modules with the same weights, by the JAX
-    package's importers."""
+    package's importers; both towers computing in bfloat16 with ``bf16``."""
     from avdn_tpu.compat import torch_import
     from avdn_tpu.train.loop import build_models as jax_build_models
     from avdn_tpu_torch.train.loop import build_models, init_state
 
-    pmodels = build_models(pargs, torch.device("cpu"))
+    pmodels = build_models(pargs, torch.device("cpu"), bf16=bf16)
     init_state(pmodels, torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed + 1)
     with torch.no_grad():
@@ -87,7 +81,7 @@ def _both_models(args, pargs, seed=0):
                     rng.normal(0, 0.1, m.num_features).astype(np.float32)))
                 m.running_var.copy_(torch.from_numpy(
                     rng.uniform(0.5, 1.5, m.num_features).astype(np.float32)))
-    jmodels = jax_build_models(args, bf16=False)
+    jmodels = jax_build_models(args, bf16=bf16)
     sds = [{k: v.numpy() for k, v in m.state_dict().items()} for m in pmodels]
     state = _JaxState(
         torch_import.bert_params_from_torch(sds[0], args.bert_layers),
@@ -96,10 +90,13 @@ def _both_models(args, pargs, seed=0):
     return pmodels, jmodels, state
 
 
-def _jax_loss_and_grads(args, models, state, jside):
+def _jax_loss_and_grads(args, models, state, jside, dropout_identity=True):
     """``value_and_grad`` of the JAX train loss (``make_train_step.loss_fn``'s
-    composition), jitted, dropout the identity: (loss, grads, new BN
-    statistics)."""
+    composition), jitted, dropout the identity (unless
+    ``dropout_identity`` is False: then flax's dropout as it stands while
+    this traces): (loss, grads, new BN statistics, the student pass's
+    trajectory: post-step corners, directions and alive flags, each
+    (T, B, ...))."""
     from avdn_tpu.train.loop import train_config_from_args
     from avdn_tpu.train.step import _encode_language, _run_family_rollout
 
@@ -111,45 +108,27 @@ def _jax_loss_and_grads(args, models, state, jside):
         bert_out = _encode_language(bert, trainable["bert"], batch, cfg, train=True,
                                     rng=r_bert)
         out_t, batch_stats = _run_family_rollout(
-            cfg, cfg.rollout_cfg(teacher=True, nss_w=0.0, collect_views=True,
-                                 collect_saliency=True), (dk, vln), bert_out,
+            cfg, cfg.rollout_cfg(teacher=True, nss_w=0.0), (dk, vln), bert_out,
             trainable, batch_stats, batch, map_bank, r_t)
         out_s, batch_stats = _run_family_rollout(
-            cfg, cfg.rollout_cfg(teacher=False, nss_w=cfg.nss_w, collect_views=True,
-                                 collect_saliency=True), (dk, vln), bert_out,
+            cfg, cfg.rollout_cfg(teacher=False, nss_w=cfg.nss_w), (dk, vln), bert_out,
             trainable, batch_stats, batch, map_bank, r_s)
         B = batch.ids_instr.shape[0]
-        views = [(o.views, o.gt_sal) for o in (out_t, out_s)]
-        return cfg.ml_weight * (out_t.loss + out_s.loss) / B, (batch_stats, views)
+        traj = (out_s.corners, out_s.directions, out_s.alive_post)
+        return cfg.ml_weight * (out_t.loss + out_s.loss) / B, (batch_stats, traj)
 
     trainable = {"bert": state.bert_params, "darknet": state.darknet_params,
                  "vln": state.vln_params}
     jarr, jb, _ = jside
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(flax.linen.Dropout, "__call__",
-                   lambda self, x, deterministic=None, rng=None: x)
+        if dropout_identity:
+            mp.setattr(flax.linen.Dropout, "__call__",
+                       lambda self, x, deterministic=None, rng=None: x)
         fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-        (loss, (new_stats, views)), grads = fn(trainable, state.batch_stats, jarr, jb,
-                                               jax.random.PRNGKey(1))
-    views = [tuple(torch.from_numpy(np.array(v)) for v in pair) for pair in views]
-    return float(loss), jax.device_get(grads), jax.device_get(new_stats), views
-
-
-def _feed_views(mp, views):
-    """Make the port's rollouts take JAX's rendered views: the fused teacher
-    pass all T·B at once, then the student loop step by step."""
-    import avdn_tpu_torch.rollout.engine as engine
-    import avdn_tpu_torch.rollout.fused as fused
-
-    (teacher_v, teacher_g), (student_v, student_g) = views
-    steps = iter(range(student_v.shape[0]))
-    mp.setattr(fused, "_render_all", lambda *a, **k: (teacher_v, teacher_g))
-
-    def student_render(*a, **k):
-        t = next(steps)
-        return student_v[t], student_g[t]
-
-    mp.setattr(engine, "render_views", student_render)
+        (loss, (new_stats, traj)), grads = fn(trainable, state.batch_stats, jarr, jb,
+                                              jax.random.PRNGKey(1))
+    traj = tuple(torch.from_numpy(np.array(x)) for x in traj)
+    return float(loss), jax.device_get(grads), jax.device_get(new_stats), traj
 
 
 @pytest.fixture(scope="module")
@@ -167,16 +146,14 @@ def both(tmp_path_factory):
     raw = json.load(open(os.path.join(root, "AVDN", "annotations", "train_data.json")))
     items = [JaxNavigator._normalize_item(it) for it in raw[:N_ITEMS]]
     jside, pside = both_batches(args, pargs, items)
-    jloss, jgrads, jstats, views = _jax_loss_and_grads(args, models, state, jside)
+    jloss, jgrads, jstats, _ = _jax_loss_and_grads(args, models, state, jside)
 
     zero_dropout(*pmodels)
     for m in pmodels:
         m.train()
     parr, pb, _ = pside
     loss_fn = make_loss_fn(train_config_from_args(pargs), *pmodels)
-    with pytest.MonkeyPatch.context() as mp:
-        _feed_views(mp, views)
-        ploss = loss_fn(pb, parr, torch.Generator().manual_seed(1), N_ITEMS)
+    ploss = loss_fn(pb, parr, torch.Generator().manual_seed(1), N_ITEMS)
     ploss.backward()
     return dict(args=args, pargs=pargs, models=models, state=state, jloss=jloss,
                 jgrads=jgrads, jstats=jstats, ploss=float(ploss.detach()),

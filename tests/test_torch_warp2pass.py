@@ -97,7 +97,7 @@ def test_twopass_bf16_within_the_jax_bounds():
     exact = np.asarray(exact)
     rounded = torch.round(torch.from_numpy(quads))
     views = {dt: warp2pass._warp_group(torch.from_numpy(bank), torch.from_numpy(idx).long(),
-                                       rounded, 256, 224, 64, 56, dt).numpy()
+                                       rounded, 256, 224, dt).numpy()
              for dt in (torch.float32, torch.bfloat16)}
     d16 = np.abs(views[torch.bfloat16] - exact)
     d32 = np.abs(views[torch.float32] - exact)

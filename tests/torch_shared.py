@@ -196,3 +196,66 @@ def jax_twopass_bf16_one_device(tmp_path_factory):
         return metrics_of(jargs.log_dir)
 
     return cached(tmp_path_factory, "jax_valid_twopass_bf16_one_device", make)
+
+
+# ------------------------------------------------- shared dropout masks --
+
+_HASH_MUL = (2654435761, 2246822519)
+
+
+def _hash_keep_torch(shape, keep, device):
+    """The keep mask of ``shared_dropout_masks`` in torch (int64 arithmetic
+    kept to 32 bits)."""
+    m = 0xFFFFFFFF
+    h = torch.arange(int(torch.Size(shape).numel()), dtype=torch.int64, device=device)
+    h = (h * _HASH_MUL[0]) & m
+    h = h ^ (h >> 15)
+    h = (h * _HASH_MUL[1]) & m
+    h = h ^ (h >> 13)
+    return ((h >> 8) < int(keep * (1 << 24))).reshape(shape)
+
+
+def _hash_keep_jax(shape, keep):
+    """The keep mask of ``shared_dropout_masks`` in uint32 jax.numpy."""
+    import math
+
+    import jax.numpy as jnp
+
+    h = jnp.arange(math.prod(shape), dtype=jnp.uint32)
+    h = h * jnp.uint32(_HASH_MUL[0])
+    h = h ^ (h >> 15)
+    h = h * jnp.uint32(_HASH_MUL[1])
+    h = h ^ (h >> 13)
+    return ((h >> 8) < jnp.uint32(int(keep * (1 << 24)))).reshape(shape)
+
+
+def shared_dropout_masks(mp):
+    """Inside the ``pytest.MonkeyPatch`` ``mp``, every dropout of both
+    packages keeps the same elements: the mask of a tensor is a fixed hash
+    of each element's flat index (kept with probability ≈ 1 − rate), with
+    each package's own semantics around it (``where(mask, x / keep, 0)``,
+    the identity in eval mode or at rate 0). The two sides' draws then
+    coincide, so a train step with dropout on can be compared op for op.
+    The JAX package is not edited: flax's ``Dropout.__call__`` is replaced
+    while a function is traced."""
+    import flax.linen as nn
+    import jax
+
+    from avdn_tpu_torch.models import layers
+
+    def port_forward(self, x, generator=None):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        return torch.where(_hash_keep_torch(x.shape, keep, x.device), x / keep, 0.0)
+
+    def flax_call(self, x, deterministic=None, rng=None):
+        if nn.merge_param("deterministic", self.deterministic, deterministic) \
+                or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        return jax.lax.select(_hash_keep_jax(x.shape, keep), x / keep,
+                              jax.numpy.zeros_like(x))
+
+    mp.setattr(layers.Dropout, "forward", port_forward)
+    mp.setattr(nn.Dropout, "__call__", flax_call)
