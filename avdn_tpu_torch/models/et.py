@@ -37,7 +37,6 @@ from avdn_tpu_torch.models.layers import (
     TransformerEncoderLayer,
     add_haa_pos_encoding,
     haa_attention_mask,
-    saliency_upsample,
     sinusoidal_pos_encoding,
 )
 
@@ -51,7 +50,6 @@ class ETConfig:
     dropout_emb: float = 0.0
     spatial_dim: int = 49  # 7x7 darknet grid
     pos_max_len: int = 1250
-    saliency_hw: int = 224
 
 
 class _EncoderVL(nn.Module):
@@ -126,12 +124,13 @@ class HAATransformer(nn.Module):
         return seq
 
     def readout(self, vis_tok, dir_tok, generator=None):
-        """Visual token → saliency (N, 224, 224); direction token → action
+        """Visual token → the (N, 8, 8) saliency head, before its upsample to
+        (N, 224, 224) (``ops.saliency.saliency_upsample``, which the rollouts
+        run in ``saliency_head_reductions``); direction token → action
         (N, 4)."""
         action = self.decoder_2_action_full(dir_tok, generator)
         sal = self.fc[1](self.saliency_dropout(self.fc[0](vis_tok), generator))
-        saliency = saliency_upsample(sal.reshape(-1, 8, 8), self.cfg.saliency_hw)
-        return action, saliency
+        return action, sal.reshape(-1, 8, 8)
 
     def forward(self, lang, lang_cls, frames, directions, lengths, generator=None):
         """One step's outputs: the trunk over the padded history, read out at

@@ -41,7 +41,7 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
-from avdn_tpu_torch.models.layers import dense, saliency_upsample, softmax
+from avdn_tpu_torch.models.layers import dense, softmax
 
 
 def teacher_onepass(model, lang, lang_cls, frames, dirs, lengths_steps):
@@ -50,7 +50,7 @@ def teacher_onepass(model, lang, lang_cls, frames, dirs, lengths_steps):
 
     ``frames`` (B, T, C, 49) and ``dirs`` (B, T, 2) are the full unmasked
     history; ``lengths_steps`` (T, B) the cumulative alive counts per step.
-    Returns ``action (T, B, 4)`` and ``saliency (T, B, hw, hw)``."""
+    Returns ``action (T, B, 4)`` and the saliency heads ``(T, B, 8, 8)``."""
     B, T = frames.shape[0], frames.shape[1]
     L = lang.shape[1]
     seq = model.encode(lang, lang_cls, frames, dirs, lengths_steps[-1])
@@ -219,7 +219,7 @@ def decode_step(model, lang_kv, cache: ETFastCache, lang_cls, feats_t, dir_feat_
     update. For a query at position t the full call's causal mask (s ≤ t)
     plus its key padding (s < lengths[b]) collapse to ``s < lengths[b]``
     (lengths ≤ t+1), which also masks the cache slots not yet written.
-    Returns ``(cache, action (B, 4), saliency (B, hw, hw))``."""
+    Returns ``(cache, action (B, 4), saliency head (B, 8, 8) float32)``."""
     cfg = model.cfg
     T = cache.out_frames.shape[1]
     L = lang_kv[0][0].shape[2]
@@ -263,5 +263,4 @@ def decode_step(model, lang_kv, cache: ETFastCache, lang_cls, feats_t, dir_feat_
     dir_tok = cache.out_dirs.index_select(1, m)[:, 0]
     action = model.decoder_2_action_full(dir_tok)
     sal = model.fc(vis_tok)
-    saliency = saliency_upsample(sal.reshape(-1, 8, 8).float(), cfg.saliency_hw)
-    return cache, action, saliency
+    return cache, action, sal.reshape(-1, 8, 8).float()

@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from avdn_tpu_torch.ops.saliency import saliency_upsample  # noqa: F401  (re-export)
+
 
 def dense(x, weight, bias, dtype, keep_f32: bool = False):
     """``x @ weight.T + bias`` as flax's ``nn.Dense(dtype=dtype)`` computes
@@ -255,30 +257,6 @@ def haa_attention_mask(len_lang: int, len_steps: int, device=None) -> torch.Tens
     ok = torch.where(is_lang_q, is_lang_k, is_lang_k | (k_step <= q_step))
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return torch.where(ok, zero, float("-inf"))
-
-
-def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """``jax.image.resize``'s (n_in, n_out) bilinear upscale weights
-    (half-pixel centres, edge weights renormalised)."""
-    inv = n_in / n_out
-    sample = (torch.arange(n_out, dtype=torch.float64, device=device) + 0.5) * inv - 0.5
-    w = (1.0 - (sample[None, :] - torch.arange(n_in, dtype=torch.float64,
-                                                device=device)[:, None]).abs()).clamp(min=0)
-    return (w / w.sum(dim=0, keepdim=True)).float()
-
-
-def saliency_upsample(x8: torch.Tensor, out_hw: int = 224) -> torch.Tensor:
-    """(B, 8, 8) → (B, out, out) bilinear upsample with half-pixel centers
-    (``interpolate(..., align_corners=False)``, src/models/ET_haa.py:166-167).
-    A bfloat16 input is resized as ``jax.image.resize`` resizes it: the
-    weights rounded to bfloat16, rows contracted first, each contraction
-    rounded."""
-    if x8.dtype == torch.float32:
-        return F.interpolate(x8[:, None], size=(out_hw, out_hw), mode="bilinear",
-                             align_corners=False)[:, 0]
-    w = _resize_weights(x8.shape[1], out_hw, x8.device).to(x8.dtype)
-    rows = torch.einsum("bij,ip->bpj", x8, w)
-    return torch.einsum("bpj,jq->bpq", rows, w)
 
 
 class MultiheadSelfAttention(nn.Module):

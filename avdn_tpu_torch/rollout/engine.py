@@ -34,7 +34,7 @@ import torch
 from avdn_tpu_torch.models import et_fast
 from avdn_tpu_torch.models.darknet import frozen_running_stats
 from avdn_tpu_torch.ops.losses import step_losses
-from avdn_tpu_torch.ops.saliency import saliency_reductions
+from avdn_tpu_torch.ops.saliency import saliency_head_reductions, saliency_upsample
 from avdn_tpu_torch.sim.dynamics import move_view_corners_batch
 from avdn_tpu_torch.sim.oracle import teacher_action_batch
 from avdn_tpu_torch.sim.render import render_batch
@@ -193,7 +193,7 @@ def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
     """Run one full episode batch: T steps, all on the batch's device.
 
     ``model_step(model_state, images, dir_feat, step_index, ended)`` →
-    ``(new_model_state, action (B, 4), saliency (B, H, W))``; ``images`` are
+    ``(new_model_state, action (B, 4), saliency head (B, 8, 8))``; ``images`` are
     the normalised (B, 224, 224, 3) views. ``generator`` draws the
     reference's heading jitter of the loss (on the batch's device).
     Returns ``(RolloutOutputs, final model_state)``; with ``cfg.train`` the
@@ -229,21 +229,24 @@ def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
             dir_feat = torch.zeros_like(dir_feat)
 
         # ---- model ----
-        model_state, action, pred_sal = model_step(model_state, x, dir_feat, t, ended)
+        model_state, action, sal_head = model_step(model_state, x, dir_feat, t, ended)
         action = action.float()
-        pred_sal = pred_sal.float()
         # losses see the RAW head outputs (agent.py:663-669); the decode
         # only feeds the trajectory records and student feedback
         pred_wp, pred_alt, pred_prog = action[:, 0:2], action[:, 2], action[:, 3]
         wp_norm, alt_clip, prog_clip = decode_action(action)
 
-        # ---- saliency statistics (the CUDA kernel on the card) ----
+        # ---- the saliency maps and their statistics (the CUDA kernels on
+        # the card: the fused forward, and under autograd the head's
+        # gradient) ----
         if cfg.compute_losses or cfg.collect_ha_metrics:
-            neg_nss, nss_valid, ha_prec, ha_rec = saliency_reductions(
-                pred_sal, gt_sal, nss_r=cfg.nss_r)
+            pred_sal, neg_nss, nss_valid, ha_prec, ha_rec = saliency_head_reductions(
+                sal_head, gt_sal, nss_r=cfg.nss_r)
         else:
             neg_nss, ha_prec, ha_rec = zeros, zeros, zeros
             nss_valid = torch.zeros((B,), dtype=torch.bool, device=dev)
+            if cfg.collect_saliency:
+                pred_sal = saliency_upsample(sal_head.detach(), gt_sal.shape[-1]).float()
 
         # ---- oracle + losses ----
         if cfg.compute_losses:

@@ -19,8 +19,9 @@ steers. So:
 4. the ET trunk runs once over the full history (``models/et_fast.py``,
    eval), or as the T step-masked calls of the step loop (train mode, with
    each call's own dropout masks, and ``--fast_eval_trunk False``);
-5. the saliency kernel runs once over the T·B maps (and in train mode its
-   backward kernel once, when the loss holds the −NSS term).
+5. the T·B saliency heads are upsampled and the saliency kernel runs once
+   over their maps (and in train mode the head-gradient kernel once, when
+   the loss holds the −NSS term).
 
 The result is the same ``RolloutOutputs`` as ``engine.rollout`` with a
 teacher-forcing config. The LSTM family is ROADMAP.md queue 1 item 11.
@@ -34,7 +35,7 @@ import torch
 
 from avdn_tpu_torch.models.et_fast import teacher_onepass
 from avdn_tpu_torch.ops.losses import step_losses
-from avdn_tpu_torch.ops.saliency import saliency_reductions
+from avdn_tpu_torch.ops.saliency import saliency_head_reductions, saliency_upsample
 from avdn_tpu_torch.rollout.engine import (
     _PI_REF,
     RGB_MEAN,
@@ -124,7 +125,7 @@ def _tower_features(darknet_model, x_tb, cfg: RolloutConfig):
 def _et_actions(et_model, batch: EpisodeBatch, cfg: RolloutConfig, feats,
                 dir_feat, ended_pre, generator=None):
     """All T step outputs of the ET trunk: ``(actions (T, B, 4), saliency
-    (T, B, hw, hw))``.
+    heads (T, B, 8, 8))``.
 
     The step loop's history buffer at step t holds the features of
     positions ≤ t and zeros beyond, and its lengths are the cumulative
@@ -187,21 +188,26 @@ def rollout_teacher_fused(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
     feats = _tower_features(darknet_model, x, cfg)
     if cfg.language_only:
         feats = torch.zeros_like(feats)
-    actions, pred_sal = _et_actions(vln_model, batch, cfg, feats, dir_feat,
+    actions, sal_head = _et_actions(vln_model, batch, cfg, feats, dir_feat,
                                     geo["ended_pre"], generator)
     actions = actions.float()
-    pred_sal = pred_sal.float()
+    sal_head = sal_head.reshape(T * B, *sal_head.shape[2:])
+    gt_flat = gt_sal.reshape(T * B, *gt_sal.shape[2:])
     wp_norm, alt_clip, _ = decode_action(actions.reshape(T * B, 4))
 
-    # ---- HA statistics: one saliency-kernel launch over the T·B maps ----
+    # ---- HA statistics: one saliency-kernel launch over the T·B maps (and
+    # under autograd one launch of the head's gradient) ----
+    pred_sal = None
     if cfg.compute_losses or cfg.collect_ha_metrics:
-        neg_nss, nss_valid, ha_prec, ha_rec = (
-            r.reshape(T, B) for r in saliency_reductions(
-                pred_sal.reshape(T * B, *pred_sal.shape[2:]),
-                gt_sal.reshape(T * B, *gt_sal.shape[2:]), nss_r=cfg.nss_r))
+        pred_sal, *red = saliency_head_reductions(sal_head, gt_flat, nss_r=cfg.nss_r)
+        neg_nss, nss_valid, ha_prec, ha_rec = (r.reshape(T, B) for r in red)
     else:
         neg_nss = ha_prec = ha_rec = torch.zeros((T, B), dtype=torch.float32, device=dev)
         nss_valid = torch.zeros((T, B), dtype=torch.bool, device=dev)
+    if cfg.collect_saliency:
+        if pred_sal is None:
+            pred_sal = saliency_upsample(sal_head.detach(), gt_flat.shape[-1]).float()
+        pred_sal = pred_sal.reshape(T, B, *pred_sal.shape[1:])
 
     # ---- losses, summed over the steps in the step loop's order ----
     loss = torch.zeros((), dtype=torch.float32, device=dev)

@@ -11,10 +11,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes (the fused saliency kernel: B = 8 and 16,
              the per-step batches, and 80, 160 and 240, T·B of the fused
-             teacher path; each nss_r; repeated launches bitwise equal; its
-             backward kernel of −NSS, ``grad_kernel``, at N = 8, 16, 80 and
-             240 against autograd of the plain version, with an
-             empty-ground-truth and a constant-prediction item), with device
+             teacher path; each nss_r; repeated launches bitwise equal; the
+             backward of −NSS to the 8×8 saliency head, ``grad_kernel``, at
+             N = 8, 16, 80, 160 and 240, fp32 and bf16 heads, against the
+             plain version, with an empty-ground-truth and a constant-head
+             item, one launch per backward and no other kernel, no upsample
+             backward and no full-resolution buffer in it), with device
              times from torch.profiler, cold (held against the HBM byte
              bound) and hot in L2.
 4. slice   — the ET-HAA inference path at full width (BERT-base 12×768,
@@ -48,8 +50,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
              (the loop runs whole epochs); finite losses and grad norms,
              the checkpoints loadable by ``valid()``, the saliency
              launches per step (forward T + 1, backward T), the median step
-             wall, peak memory and one profiled step (idle share, top
-             kernels).
+             wall, peak memory and one profiled step (idle share, launches,
+             top kernels; no upsample backward).
 6c. train_production — the same with ``--preset production`` (B = 16, bf16
              towers, the two-pass render in both rollouts, dots remat), T =
              10, on the val splits and 48 train items: the saliency launches
@@ -1000,7 +1002,8 @@ def phase_profile(nav, items, card):
     import torch
 
     from avdn_tpu_torch.models.darknet import Darknet, fold_darknet_params
-    from avdn_tpu_torch.ops.saliency import saliency_reductions, saliency_reductions_plain
+    from avdn_tpu_torch.ops.saliency import (saliency_reductions, saliency_reductions_plain,
+                                             saliency_upsample)
     from avdn_tpu_torch.rollout.engine import (RGB_MEAN, RGB_STD, _corners_to_img,
                                                dynamics_update)
     from avdn_tpu_torch.sim.oracle import teacher_action_batch
@@ -1024,7 +1027,8 @@ def phase_profile(nav, items, card):
         frames = feats[:, None].expand(B, T, *feats.shape[1:]).contiguous()
         dirs = torch.zeros((B, T, 2), device="cuda")
         lengths = torch.full((B,), T, dtype=torch.long, device="cuda")
-        action, pred_sal = nav.vln(lang_feat, lang_cls, frames, dirs, lengths)
+        action, sal_head = nav.vln(lang_feat, lang_cls, frames, dirs, lengths)
+        pred_sal = saliency_upsample(sal_head, gt_sal.shape[-1]).float()
         ended = torch.zeros((B,), dtype=torch.bool, device="cuda")
         layers = {
             "bert_2_passes": lambda: _encode_language(nav.bert, batch, nav.cfg),
@@ -1044,7 +1048,7 @@ def phase_profile(nav, items, card):
         time_layers(layers, card, "[profile]", B)
 
 
-GRAD_BATCHES = (SERVE_BATCH, 16, T_STEPS * SERVE_BATCH, 15 * 16)
+GRAD_BATCHES = (SERVE_BATCH, 16, T_STEPS * SERVE_BATCH, T_STEPS * 16, 15 * 16)
 #: a two-conv Darknet for the card-vs-CPU train step (the 224 px input to a
 #: (32, 7, 7) feature map, as the full tower's (512, 7, 7))
 TINY_DARKNET_CFG = """
@@ -1071,71 +1075,149 @@ activation=leaky
 """
 
 
-def phase_grad_kernel(card):
-    """The backward kernel of −NSS (``csrc/saliency_nss_grad.cu``) against
-    autograd of the plain version on the card, at N = 8 (a student step),
-    80 (the fused teacher's T·B) and 240, for each nss_r, on maps with an
-    empty ground truth (item 2) and a constant prediction (item 1, std = 0),
-    through the loss's ``where(valid, −NSS, 0)`` with random item weights:
-    max abs error over max |grad| within 1e-5, exactly 0 on the invalid
-    items, one forward and one backward launch per autograd pass. Then its
-    device time, cold (cycling input copies past the L2) against the HBM
-    byte bound (12 bytes a pixel: p and g read, dL/dp written) and hot, and
-    the plain version's."""
+def head_inputs(N: int, dtype, device):
+    """Seeded (N, 8, 8) saliency heads in ``dtype``, (N, 224, 224) ground
+    truths and item weights, with a constant head (item 1: a constant map,
+    std = 0) and an empty ground truth (item 2)."""
     import torch
 
-    from avdn_tpu_torch.ops.saliency import (saliency_fused, saliency_nss_grad,
-                                             saliency_nss_grad_plain,
-                                             saliency_reductions, saliency_stats)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 7 * N)
+    x8 = 0.3 + 0.4 * torch.randn((N, 8, 8), generator=g)
+    gt = (torch.rand((N, 224, 224), generator=g) > 0.85).float()
+    weight = 0.5 + torch.rand(N, generator=g)
+    x8[1] = 0.25
+    gt[2] = 0.0
+    return x8.to(dtype).to(device), gt.to(device), weight.to(device)
+
+
+#: the head-gradient kernel's tolerance, max abs error over max |grad|
+#: against the plain version: fp32 sums in another order; bf16 flips single
+#: ulps of a bf16-rounded contraction where the order differs
+HEAD_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: bf16: the largest share of the gradient's elements that may differ from
+#: the plain version's. Another order flips a few in a thousand; a kernel
+#: that dropped the bf16 rounding of dL/dp or of d_rows would change far
+#: more, yet (d_rows) stay within HEAD_GRAD_TOL
+#: (tests/test_torch_saliency_head.py:test_flip_share_sees_a_dropped_rounding)
+HEAD_GRAD_BF16_FLIP_SHARE = 0.01
+
+
+def phase_grad_kernel(card):
+    """The backward of −NSS to the saliency head (``csrc/saliency_head_grad.cu``)
+    on the card, at N = 8 and 16 (a step of the reference and the production
+    recipe), 80 and 160 (the fused teacher's T·B) and 240, for float32 and
+    bfloat16 heads and each nss_r, on inputs with a constant head (std = 0)
+    and an empty ground truth, through ``saliency_head_reductions`` and the
+    loss's ``where(valid, −NSS, 0)`` with random item weights: one forward
+    and one backward launch per autograd pass, the gradient within
+    HEAD_GRAD_TOL of ``saliency_head_grad_plain``'s (in bf16 differing in
+    at most HEAD_GRAD_BF16_FLIP_SHARE of its elements), exactly 0 on the
+    invalid items, no (N, 224, 224) buffer in the backward
+    (``max_memory_allocated``), and, from torch.profiler, no kernel in the
+    op's backward but the head kernel (no upsample backward, no GEMM).
+    Then three launches bitwise equal, the device time cold (cycling copies
+    of the GT maps and heads past the L2) against the HBM byte bound (4
+    bytes a pixel of the items whose gradient is not 0, read once) and hot,
+    the plain version's, and the wrapper call back to back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from avdn_tpu_torch.ops.saliency import (saliency_fused, saliency_head_grad,
+                                             saliency_head_grad_plain,
+                                             saliency_head_reductions, saliency_stats,
+                                             saliency_upsample)
 
     rec = {}
     for N in GRAD_BATCHES:
-        pred, gt = saliency_inputs(N, "cuda")
-        g = torch.Generator(device="cpu").manual_seed(SEED + 7 * N)
-        weight = (0.5 + torch.rand(N, generator=g)).cuda()
-        err = 0.0
-        for nss_r in (0, 1, -1):
-            p = pred.clone().requires_grad_(True)
-            fwd, bwd = saliency_stats.launches, saliency_nss_grad.launches
-            neg, valid, _, _ = saliency_reductions(p, gt, nss_r)
-            (weight * torch.where(valid, neg, 0.0)).sum().backward()
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            where = f"grad kernel N={N} {dtype_name}"
+            x8, gt, weight = head_inputs(N, dtype, "cuda")
+            map_bytes = N * gt.shape[1] * gt.shape[2] * 4
+            err = flips = 0.0
+            for nss_r in (0, 1, -1):
+                x = x8.clone().requires_grad_(True)
+                fwd, bwd = saliency_stats.launches, saliency_head_grad.launches
+                _, neg, valid, _, _ = saliency_head_reductions(x, gt, nss_r)
+                loss = (weight * torch.where(valid, neg, 0.0)).sum()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                loss.backward()
+                torch.cuda.synchronize()
+                extra = torch.cuda.max_memory_allocated() - base
+                if (saliency_stats.launches - fwd, saliency_head_grad.launches - bwd) != (1, 1):
+                    fail(f"{where}: {saliency_stats.launches - fwd} forward and "
+                         f"{saliency_head_grad.launches - bwd} backward launches, "
+                         "expected 1, 1")
+                if extra >= map_bytes // 2:
+                    fail(f"{where}: the backward allocated {extra} bytes, a "
+                         f"full-resolution map is {map_bytes}")
+                want = saliency_head_grad_plain(x8, gt, weight * valid, nss_r).float()
+                got = x.grad.float()
+                e = (got - want).abs().max().item() / want.abs().max().item()
+                if not (torch.isfinite(got).all() and e <= HEAD_GRAD_TOL[dtype_name]):
+                    fail(f"{where} nss_r={nss_r}: max abs err / max |grad| {e}")
+                share = (got != want).float().mean().item()
+                if dtype == torch.bfloat16 and share > HEAD_GRAD_BF16_FLIP_SHARE:
+                    fail(f"{where} nss_r={nss_r}: {share} of the gradient's elements "
+                         f"differ from the plain version's (at most "
+                         f"{HEAD_GRAD_BF16_FLIP_SHARE}): a bf16 rounding point dropped?")
+                flips = max(flips, share)
+                if got[1].abs().max().item() != 0 or got[2].abs().max().item() != 0:
+                    fail(f"{where} nss_r={nss_r}: nonzero gradient on the std = 0 "
+                         "or Σg = 0 item")
+                err = max(err, e)
+
+            # the op's backward alone, under the profiler: the head kernel only
+            x = x8.clone().requires_grad_(True)
+            _, neg, valid, _, _ = saliency_head_reductions(x, gt)
+            up = (weight * valid).contiguous()
+            for _ in range(5):  # a session now and then records no kernel
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    torch.autograd.grad(neg, x, up, retain_graph=True)
+                    torch.cuda.synchronize()
+                names = [e.key for e in kernel_events(prof)]
+                if names:
+                    break
+            if not names or any("head_grad_kernel" not in k for k in names):
+                fail(f"{where}: the op's backward launched {names}, expected the "
+                     "head kernel alone")
+
+            stats = saliency_fused(saliency_upsample(x8).float(), gt)[0]
+            runs = [saliency_head_grad(x8, gt, stats, up) for _ in range(3)]
             torch.cuda.synchronize()
-            if (saliency_stats.launches - fwd, saliency_nss_grad.launches - bwd) != (1, 1):
-                fail(f"grad kernel N={N}: {saliency_stats.launches - fwd} forward and "
-                     f"{saliency_nss_grad.launches - bwd} backward launches, expected 1, 1")
-            want = saliency_nss_grad_plain(pred, gt, weight * valid, nss_r)
-            scale = want.abs().max().item()
-            e = (p.grad - want).abs().max().item() / scale
-            if not (torch.isfinite(p.grad).all() and e <= 1e-5):
-                fail(f"grad kernel N={N} nss_r={nss_r}: max abs err / max |grad| {e}")
-            if p.grad[1].abs().max().item() != 0 or p.grad[2].abs().max().item() != 0:
-                fail(f"grad kernel N={N} nss_r={nss_r}: nonzero gradient on the "
-                     "std = 0 or Σg = 0 item")
-            err = max(err, e)
-        stats, neg, valid, _, _ = saliency_fused(pred, gt, 0)
-        up = (weight * valid).contiguous()
-        set_bytes = 2 * pred.numel() * 4
-        n_copies = -(-COLD_BYTES // set_bytes)
-        copies = [(pred.clone(), gt.clone()) for _ in range(n_copies)]
-        turn = itertools.cycle(copies)
-        hot_ms, hot_rec = kernel_time_ms(lambda: saliency_nss_grad(pred, gt, stats, up))
-        cold_ms, cold_rec = kernel_time_ms(lambda: saliency_nss_grad(*next(turn), stats, up))
-        plain = device_time_ms(lambda: saliency_nss_grad_plain(pred, gt, up))
-        if plain is None:
-            fail("torch.profiler recorded no kernel of the plain gradient")
-        del copies, turn
-        bytes_moved = 12 * pred.numel() + N * 36  # p, g in; dL/dp out; stats row, u
-        flops = 5 * pred.numel()
-        bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / 67e12) * 1e3
-        log(f"[grad_kernel] N={N}: max_abs_err/max|grad| {err} | device time cold "
-            f"{cold_ms * 1e3} us ({n_copies} input copies; {cold_rec} of 50 launches "
-            f"recorded), bound {bound_ms * 1e3} us (bytes, HBM), share of bound "
-            f"(bound/cold) {bound_ms / cold_ms:.3f} | hot (L2) {hot_ms * 1e3} us "
-            f"({hot_rec} of 50) | plain (autograd of the plain reductions) "
-            f"{plain[0] * 1e3} us in {plain[1]:g} kernels | {card}")
-        rec[N] = dict(max_abs_err=err, ms=cold_ms, hot_ms=hot_ms, plain_ms=plain[0],
-                      bound_ms=bound_ms, ms_launches_recorded=[cold_rec, 50],
-                      hot_ms_launches_recorded=[hot_rec, 50])
+            if not all(torch.equal(runs[0], r) for r in runs[1:]):
+                fail(f"{where}: repeated launches differ")
+            n_copies = -(-COLD_BYTES // map_bytes)
+            copies = [(x8.clone(), gt.clone()) for _ in range(n_copies)]
+            turn = itertools.cycle(copies)
+            hot_ms, hot_rec = kernel_time_ms(lambda: saliency_head_grad(x8, gt, stats, up))
+            cold_ms, cold_rec = kernel_time_ms(
+                lambda: saliency_head_grad(*next(turn), stats, up))
+            plain = device_time_ms(lambda: saliency_head_grad_plain(x8, gt, up))
+            if plain is None:
+                fail("torch.profiler recorded no kernel of the plain head gradient")
+            call_ms = cuda_time_ms(lambda: saliency_head_grad(x8, gt, stats, up))
+            del copies, turn
+            live = int(((up != 0) & valid).sum())  # items whose GT the kernel reads
+            elt = x8.element_size()
+            bytes_moved = (live * map_bytes // N + N * (2 * 64 * elt + 8 * 4 + 4)
+                           + 8 * gt.shape[2] * 4)  # GT, x8 in, dx8 out, stats, u, weights
+            flops = 14 * live * map_bytes // N // 4
+            bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / 67e12) * 1e3
+            log(f"[grad_kernel] N={N} {dtype_name}: max_abs_err/max|grad| {err}, share "
+                f"of elements differing {flips} | device "
+                f"time cold {cold_ms * 1e3} us ({n_copies} input copies; {cold_rec} of 50 "
+                f"launches recorded), bound {bound_ms * 1e3} us (bytes, HBM; {live} of "
+                f"{N} items read), share of bound (bound/cold) {bound_ms / cold_ms:.3f} "
+                f"| hot (L2) {hot_ms * 1e3} us ({hot_rec} of 50) | plain "
+                f"{plain[0] * 1e3} us in {plain[1]:g} kernels | wrapper call back to "
+                f"back {call_ms * 1e3} us | backward kernels {names} | {card}")
+            rec.setdefault(str(N), {})[dtype_name] = dict(
+                max_abs_err=err, differing_share=flips, ms=cold_ms, hot_ms=hot_ms,
+                plain_ms=plain[0], bound_ms=bound_ms, call_ms=call_ms, live_items=live,
+                ms_launches_recorded=[cold_rec, 50],
+                hot_ms_launches_recorded=[hot_rec, 50])
     return rec
 
 
@@ -1161,7 +1243,7 @@ def _train_twice(tag, root, out, flags, device, card, batch):
     import avdn_tpu_torch.train.loop as loop
     from avdn_tpu_torch.cli.train_et import main as cli_main
     from avdn_tpu_torch.compat.from_jax import load_agent_weights, load_reference_agent
-    from avdn_tpu_torch.ops.saliency import saliency_nss_grad, saliency_stats
+    from avdn_tpu_torch.ops.saliency import saliency_head_grad, saliency_stats
     from torch.profiler import ProfilerActivity, profile
 
     on_card = torch.device(device).type == "cuda"
@@ -1174,7 +1256,7 @@ def _train_twice(tag, root, out, flags, device, card, batch):
 
         def observed(*sa, **skw):
             sync(device)
-            fwd, bwd = saliency_stats.launches, saliency_nss_grad.launches
+            fwd, bwd = saliency_stats.launches, saliency_head_grad.launches
             profiled = on_card and len(steps) == 4  # the resume run's second
             t0 = time.perf_counter()
             if profiled:
@@ -1188,7 +1270,7 @@ def _train_twice(tag, root, out, flags, device, card, batch):
                 steps.append({})
             steps[-1].update(wall=time.perf_counter() - t0,
                              fwd=saliency_stats.launches - fwd,
-                             bwd=saliency_nss_grad.launches - bwd)
+                             bwd=saliency_head_grad.launches - bwd)
             return res
 
         return observed
@@ -1202,13 +1284,13 @@ def _train_twice(tag, root, out, flags, device, card, batch):
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         for name, extra in ((tag, []), (tag + "_resume", ["--resume_file", "latest"])):
-            saliency_stats.launches = saliency_nss_grad.launches = 0
+            saliency_stats.launches = saliency_head_grad.launches = 0
             t0 = time.perf_counter()
             state, history = cli_main(base + extra, device=device)
             sync(device)
             wall = time.perf_counter() - t0
             fwd_by_path[name] = saliency_stats.launches
-            bwd_by_path[name] = saliency_nss_grad.launches
+            bwd_by_path[name] = saliency_head_grad.launches
             histories += history
             log(f"[{tag}] {name}: {len(history)} steps to step {state.step} in "
                 f"{wall:.3f} s (with the checkpoint and the validation), saliency "
@@ -1238,6 +1320,11 @@ def _train_twice(tag, root, out, flags, device, card, batch):
     if not resumed:
         fail(f"[{tag}] the resume run did not load latest_dict_3.pt")
     return steps, fwd_by_path, bwd_by_path, peak_gb
+
+
+#: launches of one profiled train step when the backward of −NSS wrote the
+#: full-resolution gradient for the upsample's backward (PERF.md §5)
+EARLIER_STEP_LAUNCHES = {"train": "131,808", "train_production": "142,126-142,142"}
 
 
 def _train_summary(tag, steps, peak_gb, card, on_card):
@@ -1271,10 +1358,15 @@ def _train_summary(tag, steps, peak_gb, card, on_card):
         summary.update(profiled_wall_ms=prof_step["wall"] * 1e3, busy_ms=busy_ms,
                        launches=n_launches,
                        idle=1 - busy_ms / (summary["step_wall_ms_median"]))
+        upsample_bwd = [e.key for e in kernels if "upsample_bilinear2d_backward" in e.key]
+        if upsample_bwd:
+            fail(f"[{tag}] the profiled step ran the upsample's backward: {upsample_bwd}")
         log(f"[{tag}] median step wall {summary['step_wall_ms_median']:.1f} ms over "
             f"{len(walls)} unprofiled steps after the first ({summary['first_step_ms']:.1f}"
             f" ms, it builds and tunes); profiled step: kernels {busy_ms:.3f} ms in "
-            f"{n_launches} launches, device idle {summary['idle']:.3f} of the median "
+            f"{n_launches} launches ({EARLIER_STEP_LAUNCHES[tag]} with the "
+            f"full-resolution gradient and the upsample's backward, PERF.md), no "
+            f"upsample backward, device idle {summary['idle']:.3f} of the median "
             f"wall; peak memory {peak_gb:.2f} GiB (max_memory_allocated) | {card}")
         for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                         reverse=True)[:12]:
@@ -1548,7 +1640,7 @@ def main() -> None:
     import torch
 
     k = krec[SERVE_BATCH]
-    g = grec[SERVE_BATCH]
+    g = grec[str(SERVE_BATCH)]["float32"]
     kernels = {"kernels": [{
         "name": "saliency_stats",
         "route": "cuda",
@@ -1566,23 +1658,24 @@ def main() -> None:
         "shape": [SERVE_BATCH, 224, 224],
         "by_batch": {str(B): r for B, r in krec.items()},
     }, {
-        "name": "saliency_nss_grad",
+        "name": "saliency_head_grad",
         "route": "cuda",
-        "source": "avdn_tpu_torch/csrc/saliency_nss_grad.cu",
+        "source": "avdn_tpu_torch/csrc/saliency_head_grad.cu",
         "replaces": ("avdn_tpu/rollout/engine.py:285 (XLA autodiff of "
-                     "avdn_tpu/ops/saliency_pallas.py:saliency_stats_xla and the "
-                     "saliency_reductions tail, the train path; no Pallas kernel)"),
+                     "avdn_tpu/ops/saliency_pallas.py:saliency_stats_xla, the "
+                     "saliency_reductions tail and avdn_tpu/models/layers.py:126-131 "
+                     "jax.image.resize, the train path; no Pallas kernel)"),
         "launches": sum(train_bwd.values()),
         "launches_by_path": train_bwd,
-        "max_abs_err": max(r["max_abs_err"] for r in grec.values()),
+        "max_abs_err": max(r["max_abs_err"] for by in grec.values() for r in by.values()),
         "ms": g["ms"],
         "ms_launches_recorded": g["ms_launches_recorded"],
         "plain_ms": g["plain_ms"],
         "bound_ms": g["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "shape": [SERVE_BATCH, 224, 224],
-        "by_batch": {str(N): r for N, r in grec.items()},
+        "shape": [SERVE_BATCH, 8, 8],
+        "by_batch": grec,
         "train_step": train_summary,
         "train_step_production": prod_summary,
     }]}

@@ -35,6 +35,7 @@ from avdn_tpu_torch.compat import from_jax
 from avdn_tpu_torch.models.bert import BertConfig, BertLanguageEncoder
 from avdn_tpu_torch.models.darknet import Darknet, DarknetConfig, fold_darknet_params
 from avdn_tpu_torch.models.et import ETConfig, HAATransformer
+from avdn_tpu_torch.ops.saliency import saliency_upsample
 from avdn_tpu_torch.rollout.engine import RGB_MEAN, RGB_STD
 from test_torch_models import dk_vars
 
@@ -130,7 +131,8 @@ def test_et_trunk_bf16_matches_jax(frames_bf16):
     pin = [torch.from_numpy(np.array(a.astype(jnp.float32))) for a in jin]
     pin = [t.bfloat16() if i in bf_idx else t for i, t in enumerate(pin)]
     with torch.no_grad():
-        action, sal = model(*pin, torch.from_numpy(lengths).long())
+        action, x8 = model(*pin, torch.from_numpy(lengths).long())
+        sal = saliency_upsample(x8)
     _check("action", action, want16[0], want32[0])
     _check("saliency", sal, want16[1], want32[1])
 

@@ -28,6 +28,7 @@ from avdn_tpu.models.et import HAATransformer as JET
 from avdn_tpu_torch.compat import from_jax
 from avdn_tpu_torch.models import et_fast
 from avdn_tpu_torch.models.et import ETConfig, HAATransformer
+from avdn_tpu_torch.ops.saliency import saliency_upsample
 
 TOL = 1e-5
 
@@ -86,6 +87,7 @@ def test_decode_chain_matches_jax_and_full_reencode(models):
             fa, fs = model(tl, tc, torch.where(keep[None, :, None, None], tf, 0.0),
                            torch.where(keep[None, :, None], td, 0.0),
                            torch.from_numpy(lengths[t]).long())
+            ps, fs = saliency_upsample(ps), saliency_upsample(fs)
             for got, want, name in ((pa, np.asarray(ja), "action vs JAX"),
                                     (ps, np.asarray(js), "saliency vs JAX"),
                                     (pa, fa.numpy(), "action vs re-encode"),

@@ -59,6 +59,7 @@ def test_teacher_onepass_matches_jax(case):
     from avdn_tpu_torch.compat.from_jax import et_state_dict
     from avdn_tpu_torch.models.et import ETConfig, HAATransformer
     from avdn_tpu_torch.models.et_fast import teacher_onepass
+    from avdn_tpu_torch.ops.saliency import saliency_upsample
 
     B, T, L, C, D = N_ITEMS, T_STEPS, 7, 8, 64
     rng = np.random.default_rng(0)
@@ -79,9 +80,11 @@ def test_teacher_onepass_matches_jax(case):
     model.load_state_dict({k: torch.as_tensor(np.array(v)) for k, v in
                            et_state_dict(params, 1).items()}, strict=True)
     with torch.inference_mode():
-        pa, ps = teacher_onepass(model, *(torch.from_numpy(a) for a in
+        pa, x8 = teacher_onepass(model, *(torch.from_numpy(a) for a in
                                           (lang, lang_cls, frames, dirs)),
                                  torch.from_numpy(lengths.astype(np.int64)))
+        assert x8.shape == (T, B, 8, 8)
+        ps = saliency_upsample(x8.reshape(T * B, 8, 8)).reshape(T, B, 224, 224)
     assert pa.shape == (T, B, 4) and ps.shape == (T, B, 224, 224)
     np.testing.assert_allclose(pa.numpy(), np.asarray(ja), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(ps.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)

@@ -19,8 +19,8 @@ version on the CPU) against ``jax.grad`` of the JAX reductions with
 within 1e-5 of the largest gradient. An item with Σg = 0 gets 0 on both
 sides; an item with a constant prediction (std = 0) gets NaN from XLA's
 autodiff (0·∞ through the square root's derivative) and exactly 0 from the
-port. On the card the backward kernel (``csrc/saliency_nss_grad.cu``) is
-held against that plain gradient (``cuda`` tests).
+port. The gradient down to the saliency head, and its kernel
+(``csrc/saliency_head_grad.cu``), are held in ``test_torch_saliency_head.py``.
 """
 
 import functools
@@ -43,7 +43,6 @@ from avdn_tpu_torch.ops.saliency import (
     RESIDENT_BLOCKS_PER_SM,
     cluster_size,
     saliency_fused,
-    saliency_nss_grad,
     saliency_nss_grad_plain,
     saliency_reductions,
     saliency_reductions_plain,
@@ -226,17 +225,11 @@ def test_plain_grad_matches_jax(maps, nss_r):
     ok = [0, 3]
     np.testing.assert_allclose(got[ok], want[ok], rtol=0,
                                atol=1e-5 * np.abs(want[ok]).max())
-    # the plain version of the backward kernel is that same gradient
+    # the per-pixel part of the plain head gradient is that same gradient
     up = torch.from_numpy(w) * valid
     torch.testing.assert_close(
         saliency_nss_grad_plain(torch.from_numpy(pred), torch.from_numpy(gt), up, nss_r),
         p.grad, rtol=0, atol=0)
-
-
-def test_grad_wrapper_rejects_cpu_tensors(maps):
-    pred, gt = (torch.from_numpy(x) for x in maps)
-    with pytest.raises(ValueError, match="CUDA"):
-        saliency_nss_grad(pred, gt, torch.zeros((4, 8)), torch.zeros(4))
 
 
 def _card():
@@ -288,31 +281,3 @@ def test_fused_kernel_matches_plain_on_card(B, hw, nss_r):
     red = saliency_reductions(pred, gt, nss_r)
     for a, b in zip(red, first[1:]):
         assert torch.equal(a, b)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("nss_r", [0, 1, -1])
-@pytest.mark.parametrize("B", [8, 80, 240])
-def test_grad_kernel_matches_plain_on_card(B, nss_r):
-    """The backward kernel through the autograd Function against autograd
-    of the plain version: within 1e-5 of the largest gradient; exactly 0 on
-    the constant-prediction (std = 0) and empty-fixation items and where
-    the upstream gradient is 0; one launch per backward."""
-    _card()
-    pred, gt = _card_maps(B, 224, seed=B * 10 + nss_r + 1)
-    w = torch.from_numpy(np.random.default_rng(B).uniform(0.5, 1.5, B)
-                         .astype(np.float32)).cuda()
-    w[3] = 0.0  # a valid item the loss does not weigh
-    p = pred.clone().requires_grad_(True)
-    fwd, bwd = saliency_stats.launches, saliency_nss_grad.launches
-    neg, valid, _, _ = saliency_reductions(p, gt, nss_r)
-    (w * torch.where(valid, neg, 0.0)).sum().backward()
-    torch.cuda.synchronize()
-    assert (saliency_stats.launches, saliency_nss_grad.launches) == (fwd + 1, bwd + 1)
-    got = p.grad
-    want = saliency_nss_grad_plain(pred, gt, w * valid, nss_r)
-    assert torch.isfinite(got).all()
-    for i in (1, 2, 3):  # std = 0, Σg = 0, zero upstream
-        assert (got[i] == 0).all(), i
-    torch.testing.assert_close(got, want, rtol=0,
-                               atol=1e-5 * float(want.abs().max()))
