@@ -12,8 +12,10 @@ import sys
 
 
 def main(argv=None, family: str = "et", device=None):
-    """Parse ``argv`` and run it. ``device`` (default: the card) is where
-    the driver runs; the tests pass ``"cpu"``."""
+    """Parse ``argv`` and run it. ``family`` is the entry point's model
+    family; ``--family`` in ``argv`` overrides it, as in the JAX package.
+    ``device`` (default: the card) is where the driver runs; the tests pass
+    ``"cpu"``."""
     from avdn_tpu_torch.config import parse_args
     from avdn_tpu_torch.train.loop import train, valid
 

@@ -2,12 +2,14 @@
 
 The port's own copy of the numpy state-dict converters of
 ``avdn_tpu/compat/torch_export.py`` (``bert_state_dict``,
-``darknet_state_dict``, ``et_state_dict``): they turn the JAX package's
-parameters, given as nested dicts of numpy arrays, into the reference-format
-state dicts that the port's modules load with ``strict=True``.
-:func:`load_reference_agent` reads the ``.pt`` agent checkpoint that
-``export_reference_agent`` and ``tools/export_torch_ckpt.py`` write
-(``{lang_model, vision_model, vln_model}`` each with a ``state_dict``).
+``darknet_state_dict``, ``et_state_dict``, ``lstm_state_dict``): they turn
+the JAX package's parameters, given as nested dicts of numpy arrays, into
+the reference-format state dicts that the port's modules load with
+``strict=True``. :func:`load_reference_agent` reads the ``.pt`` agent
+checkpoint that ``export_reference_agent`` and ``tools/export_torch_ckpt.py``
+write, in its family's layout (ET: ``{lang_model, vision_model,
+vln_model}`` each with a ``state_dict``; LSTM: ``{lang_model, vln_model}``
+with the Darknet nested in ``vln_model``).
 :func:`train_state_entries` carries a whole JAX ``TrainState`` across:
 parameters, BatchNorm statistics, optax's Adam moments and count, and the
 step, as the entries of the port's train checkpoint
@@ -21,6 +23,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from avdn_tpu_torch.config import check_family
 
 
 def _tt(w):  # flax kernel (in, out) -> torch Linear weight (out, in)
@@ -172,6 +176,49 @@ def et_state_dict(et_vars: Dict[str, Any],
     return sd
 
 
+# ---------------------------------------------------------------- LSTM ----
+
+
+def _lstm_cell_to_torch(sd, cell, prefix):
+    sd[prefix + ".weight_ih"] = _tt(cell["ih"]["kernel"])
+    sd[prefix + ".bias_ih"] = _n(cell["ih"]["bias"])
+    sd[prefix + ".weight_hh"] = _tt(cell["hh"]["kernel"])
+    sd[prefix + ".bias_hh"] = _n(cell["hh"]["bias"])
+
+
+def _attention_to_torch(sd, att, prefix):
+    sd[prefix + ".linear_in.weight"] = _tt(att["linear_in"]["kernel"])
+    sd[prefix + ".linear_out.weight"] = _tt(att["linear_out"]["kernel"])
+
+
+def lstm_state_dict(lstm_vars: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """``HAALSTM`` params → reference ViT_LSTM state_dict
+    (src/models/vln_model.py:163-210 naming; the Darknet's keys go under the
+    ``vision_model.`` prefix of the agent checkpoint, :func:`nest_lstm_agent`).
+    The ablation cells' params (``HAALSTMVisionOnly``, ``HAALSTMLangOnly``,
+    which have no reference export) convert the same way: each module the
+    tree holds under its reference name, and the vision-only cell's
+    ``state_query`` Dense under its own."""
+    p = _p(lstm_vars)
+    sd: Dict[str, np.ndarray] = {}
+    for flax_name, name in (("vision_attention", "attention_layer_vision"),
+                            ("lang_attention", "attention_layer_lang")):
+        if flax_name in p:
+            _attention_to_torch(sd, p[flax_name], name)
+    for flax_name, name in (("vision_lstm", "vision_lstm"),
+                            ("direction_lstm", "direct_lstm")):
+        if flax_name in p:
+            _lstm_cell_to_torch(sd, p[flax_name], name)
+    for name in ("direction_embedding", "state_query"):
+        if name in p:
+            sd[name + ".weight"] = _tt(p[name]["kernel"])
+            sd[name + ".bias"] = _n(p[name]["bias"])
+    _mlp_head_to_seq(sd, p["action_head"], "decoder_2_action_full", (0, 3, 6))
+    if "saliency_head" in p:
+        _mlp_head_to_seq(sd, p["saliency_head"], "fc", (0, 3))
+    return sd
+
+
 # --------------------------------------------------------------- agent ----
 
 #: Buffers a released checkpoint may carry that hold no weight: HF's BERT
@@ -180,18 +227,52 @@ def et_state_dict(et_vars: Dict[str, Any],
 IGNORED_BUFFERS = {"lang_model": ("bert.embeddings.position_ids",)}
 
 
-def load_reference_agent(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Read an ET agent checkpoint ``.pt`` → ``{"lang_model", "vision_model",
-    "vln_model"}`` state dicts (CPU tensors), without the
-    :data:`IGNORED_BUFFERS`."""
+#: the LSTM agent nests the Darknet's keys under this prefix of
+#: ``vln_model`` (src/xview_lstm/agent.py:860-877)
+VISION_PREFIX = "vision_model."
+
+#: the entries of an agent checkpoint, by family
+AGENT_LAYOUTS = {"et": ("lang_model", "vision_model", "vln_model"),
+                 "lstm": ("lang_model", "vln_model")}
+
+
+def nest_lstm_agent(vision: Dict[str, Any], vln: Dict[str, Any]) -> Dict[str, Any]:
+    """The LSTM layout's ``vln_model`` dict: the cell's keys and the
+    Darknet's under :data:`VISION_PREFIX` (a state dict, or a per-parameter
+    dict of optimizer moments)."""
+    return {**vln, **{VISION_PREFIX + k: v for k, v in vision.items()}}
+
+
+def split_lstm_agent(nested: Dict[str, Any]):
+    """Inverse of :func:`nest_lstm_agent`: ``(vision, vln)``."""
+    n = len(VISION_PREFIX)
+    return ({k[n:]: v for k, v in nested.items() if k.startswith(VISION_PREFIX)},
+            {k: v for k, v in nested.items() if not k.startswith(VISION_PREFIX)})
+
+
+def load_reference_agent(path: str, family: str = "et") -> Dict[str, Dict[str, torch.Tensor]]:
+    """Read an agent checkpoint ``.pt`` of ``family``'s layout →
+    ``{"lang_model", "vision_model", "vln_model"}`` state dicts (CPU
+    tensors), without the :data:`IGNORED_BUFFERS`. The ET layout holds the
+    three entries; the LSTM layout holds ``lang_model`` and ``vln_model``,
+    with the Darknet's keys under ``vision_model.`` in ``vln_model``."""
+    check_family(family)
     blob = torch.load(path, map_location="cpu", weights_only=False)
-    missing = {"lang_model", "vision_model", "vln_model"} - set(blob)
+    missing = [k for k in AGENT_LAYOUTS[family] if k not in blob]
+    if family == "lstm" and not missing and not any(
+            k.startswith(VISION_PREFIX) for k in blob["vln_model"]["state_dict"]):
+        missing = [f"vln_model's {VISION_PREFIX}* keys"]
     if missing:
-        raise KeyError(f"{path}: not an ET agent checkpoint (missing "
-                       f"{sorted(missing)})")
-    return {k: {name: v for name, v in blob[k]["state_dict"].items()
-                if name not in IGNORED_BUFFERS.get(k, ())}
-            for k in ("lang_model", "vision_model", "vln_model")}
+        raise KeyError(
+            f"{path}: not a {family} agent checkpoint, missing {missing} (the ET "
+            "layout holds lang_model, vision_model and vln_model; the LSTM layout "
+            f"holds lang_model and vln_model, the Darknet under {VISION_PREFIX}*; "
+            f"the file holds {sorted(k for k in blob if isinstance(blob[k], dict))})")
+    sds = {k: blob[k]["state_dict"] for k in AGENT_LAYOUTS[family]}
+    if family == "lstm":
+        sds["vision_model"], sds["vln_model"] = split_lstm_agent(sds["vln_model"])
+    return {k: {name: v for name, v in sd.items() if name not in IGNORED_BUFFERS.get(k, ())}
+            for k, sd in sds.items()}
 
 
 def load_agent_weights(models, state_dicts: Dict[str, Dict[str, Any]]) -> None:
@@ -219,12 +300,14 @@ def _adam_state(opt_state):
 
 
 def train_state_entries(state, block_dicts, bert_layers: int = 12,
-                        et_layers: int = 2) -> Dict[str, Any]:
-    """A JAX ``TrainState`` (numpy leaves) → ``{"step", "lang_model",
-    "vision_model", "vln_model"}``, each entry ``{"state_dict",
-    "optimizer": {"count", "mu", "nu"}}`` in the port's names. The moments
-    of a weight are laid out as the weight (a Dense kernel transposed, a
-    conv kernel to OIHW)."""
+                        et_layers: int = 2, family: str = "et") -> Dict[str, Any]:
+    """A JAX ``TrainState`` (numpy leaves) of ``family`` → ``{"step",
+    "lang_model", "vision_model", "vln_model"}``, each entry
+    ``{"state_dict", "optimizer": {"count", "mu", "nu"}}`` in the port's
+    names. The moments of a weight are laid out as the weight (a Dense
+    kernel transposed, a conv kernel to OIHW)."""
+    vln_sd = ((lambda t: et_state_dict({"params": t}, et_layers)) if family == "et"
+              else (lambda t: lstm_state_dict({"params": t})))
     stats = state.batch_stats
     groups = {
         "lang_model": (lambda t: bert_state_dict({"params": t}, bert_layers),
@@ -232,8 +315,7 @@ def train_state_entries(state, block_dicts, bert_layers: int = 12,
         "vision_model": (lambda t: darknet_state_dict(
             {"params": t, "batch_stats": stats}, block_dicts),
                          state.darknet_params, state.opt_darknet),
-        "vln_model": (lambda t: et_state_dict({"params": t}, et_layers),
-                      state.vln_params, state.opt_vln),
+        "vln_model": (vln_sd, state.vln_params, state.opt_vln),
     }
     out: Dict[str, Any] = {"step": int(np.asarray(state.step))}
     buffers = ("running_mean", "running_var", "num_batches_tracked")

@@ -235,6 +235,16 @@ _HELP = {
 }
 
 
+#: the model families (``--family``)
+FAMILIES = ("et", "lstm")
+
+
+def check_family(family: str) -> None:
+    """Raise ``ValueError`` for a ``--family`` that is not in :data:`FAMILIES`."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown family: {family} (choose 'et' or 'lstm')")
+
+
 def parse_args(argv=None, family: str = "et") -> Args:
     # allow_abbrev=False: _apply_preset detects explicitly-passed flags by
     # scanning argv for the full field name; prefix abbreviations would

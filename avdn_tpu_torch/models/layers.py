@@ -160,14 +160,18 @@ class Dropout(nn.Module):
 
 
 class SoftDotAttention(nn.Module):
-    """Luong-style soft dot attention: ``h`` (B, dim) attends over
+    """Luong-style soft dot attention: ``h`` (B, query_dim) attends over
     ``context`` (B, L, dim); returns ``tanh(W_out [attn·context ; h])`` and
-    the attention weights. Both projections are bias-free."""
+    the attention weights. Both projections are bias-free. ``query_dim``
+    (default ``dim``) is the query's width, which flax's ``nn.Dense`` infers:
+    the LSTM's language attention is queried by its 768-wide joint state
+    whatever ``dim`` is."""
 
-    def __init__(self, dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, dtype=torch.float32, query_dim: int = None):
         super().__init__()
-        self.linear_in = Dense(dim, dim, bias=False, dtype=dtype)
-        self.linear_out = Dense(2 * dim, dim, bias=False, dtype=dtype)
+        query_dim = dim if query_dim is None else query_dim
+        self.linear_in = Dense(query_dim, dim, bias=False, dtype=dtype)
+        self.linear_out = Dense(dim + query_dim, dim, bias=False, dtype=dtype)
 
     def forward(self, h, context, mask=None):
         # a float32 context promotes the target: its product stays float32

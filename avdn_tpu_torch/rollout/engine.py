@@ -33,6 +33,7 @@ import torch
 
 from avdn_tpu_torch.models import et_fast
 from avdn_tpu_torch.models.darknet import frozen_running_stats
+from avdn_tpu_torch.models.lstm import heading_radians, init_lstm_state
 from avdn_tpu_torch.ops.losses import step_losses
 from avdn_tpu_torch.ops.saliency import saliency_head_reductions, saliency_upsample
 from avdn_tpu_torch.sim.dynamics import move_view_corners_batch
@@ -370,6 +371,86 @@ def make_et_step(darknet_model, et_model, batch: EpisodeBatch, cfg: RolloutConfi
         return state, action, sal
 
     return step, init_state
+
+
+def make_lstm_step(darknet_model, lstm_model, batch: EpisodeBatch, cfg: RolloutConfig,
+                   generator: Optional[torch.Generator] = None):
+    """HAA-LSTM closure (the reference's recurrent variant,
+    src/xview_lstm/agent.py:592-602): the vision tower on the step's views
+    (BatchNorm on batch statistics in train mode), then one ``HAALSTM`` step
+    from the carried state ``(h_dir, c_dir, h_vis, c_vis)``, the heading
+    taken from the engine's (sin, cos) features (``heading_radians``). Its
+    dropout draws from ``generator``; with ``cfg.train`` and ``cfg.remat``
+    the tower and the cell are rematerialised together."""
+    B = batch.lang_feat.shape[0]
+    dev = batch.lang_feat.device
+
+    def init_state(*_):
+        return {"lstm": init_lstm_state(B, lstm_model.cfg, device=dev)}
+
+    def model(x, dir_feat, *state):
+        feats = darknet_model(x)
+        if cfg.language_only:
+            feats = torch.zeros_like(feats)
+        new, action, sal = lstm_model(heading_radians(dir_feat), feats, batch.lang_cls,
+                                      batch.lang_feat, state, generator)
+        return (*new, action, sal)
+
+    return _recurrent_step(model, cfg, generator), init_state
+
+
+def make_lstm_vision_only_step(darknet_model, lstm_model, batch: EpisodeBatch,
+                               cfg: RolloutConfig,
+                               generator: Optional[torch.Generator] = None):
+    """HAA-LSTM vision-only ablation closure (src/models/vln_model.py:255-343):
+    no language inputs at all."""
+    B = batch.start_corners.shape[0]
+    dev = batch.start_corners.device
+
+    def init_state(*_):
+        return {"lstm": init_lstm_state(B, lstm_model.cfg, device=dev)}
+
+    def model(x, dir_feat, *state):
+        new, action, sal = lstm_model(heading_radians(dir_feat), darknet_model(x), state,
+                                      generator)
+        return (*new, action, sal)
+
+    return _recurrent_step(model, cfg, generator), init_state
+
+
+def make_lstm_lang_only_step(lstm_model, batch: EpisodeBatch, cfg: RolloutConfig,
+                             generator: Optional[torch.Generator] = None):
+    """HAA-LSTM language-only ablation closure (src/models/vln_model.py:
+    349-412): no vision tower. The variant has no saliency head; its head is
+    zero (the JAX closure's zero map, upsampled), and the rollout's
+    statistics of it are those of JAX's zero map."""
+    B = batch.start_corners.shape[0]
+    dev = batch.start_corners.device
+    hid = lstm_model.cfg.hidden_size
+
+    def init_state(*_):
+        return {"lstm": tuple(torch.zeros((B, hid), device=dev) for _ in range(2))}
+
+    def model(x, dir_feat, *state):
+        new, action = lstm_model(heading_radians(dir_feat), batch.lang_feat, state,
+                                 generator)
+        return (*new, action, torch.zeros((x.shape[0], 8, 8), device=x.device))
+
+    return _recurrent_step(model, cfg, generator), init_state
+
+
+def _recurrent_step(model, cfg: RolloutConfig, generator):
+    """The engine's ``model_step`` over a recurrent ``model(x, dir_feat,
+    *state) -> (*new_state, action, saliency head)``, rematerialised under
+    ``cfg.train`` and ``cfg.remat``."""
+    if cfg.train and cfg.remat:
+        model = rematerialised(model, cfg.remat_policy, generator)
+
+    def step(state, x, dir_feat, t, ended):
+        *new, action, sal = model(x, dir_feat, *state["lstm"])
+        return {"lstm": tuple(new)}, action, sal
+
+    return step
 
 
 #: the ops whose outputs ``--remat_policy dots`` saves: the matrix products

@@ -18,13 +18,14 @@ steers. So:
    rebuilds that chain from a ``vmap``, ``_bn_stats_chain``);
 4. the ET trunk runs once over the full history (``models/et_fast.py``,
    eval), or as the T step-masked calls of the step loop (train mode, with
-   each call's own dropout masks, and ``--fast_eval_trunk False``);
+   each call's own dropout masks, and ``--fast_eval_trunk False``); the
+   LSTM cell runs its T sequential steps over the precomputed features;
 5. the T·B saliency heads are upsampled and the saliency kernel runs once
    over their maps (and in train mode the head-gradient kernel once, when
    the loss holds the −NSS term).
 
 The result is the same ``RolloutOutputs`` as ``engine.rollout`` with a
-teacher-forcing config. The LSTM family is ROADMAP.md queue 1 item 11.
+teacher-forcing config.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ import dataclasses
 
 import torch
 
+from avdn_tpu_torch.config import check_family
 from avdn_tpu_torch.models.et_fast import teacher_onepass
+from avdn_tpu_torch.models.lstm import heading_radians, init_lstm_state
 from avdn_tpu_torch.ops.losses import step_losses
 from avdn_tpu_torch.ops.saliency import saliency_head_reductions, saliency_upsample
 from avdn_tpu_torch.rollout.engine import (
@@ -153,6 +156,22 @@ def _et_actions(et_model, batch: EpisodeBatch, cfg: RolloutConfig, feats,
     return torch.stack(actions), torch.stack(sal)
 
 
+def _lstm_actions(lstm_model, batch: EpisodeBatch, feats, dir_feat, generator=None):
+    """All T step outputs of the LSTM cell over the precomputed features:
+    ``(actions (T, B, 4), saliency heads (T, B, 8, 8))``. The recurrent state
+    genuinely chains, so the cell runs T sequential steps, each drawing its
+    dropout masks from ``generator`` (train mode); it is a few small matrix
+    products a step, so the loop is not the episode's critical path."""
+    state = init_lstm_state(feats.shape[1], lstm_model.cfg, device=feats.device)
+    actions, sal = [], []
+    for t in range(feats.shape[0]):
+        state, a, s = lstm_model(heading_radians(dir_feat[t]), feats[t], batch.lang_cls,
+                                 batch.lang_feat, state, generator)
+        actions.append(a)
+        sal.append(s)
+    return torch.stack(actions), torch.stack(sal)
+
+
 def rollout_teacher_fused(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
                           family: str, darknet_model, vln_model,
                           generator: torch.Generator) -> RolloutOutputs:
@@ -163,10 +182,7 @@ def rollout_teacher_fused(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
     the dropout masks."""
     if not cfg.teacher_forcing:
         raise ValueError("the fused rollout is teacher forcing only")
-    if family != "et":
-        raise NotImplementedError(
-            f"--family {family}: the LSTM family's fused rollout is ROADMAP.md "
-            "queue 1 item 11")
+    check_family(family)
     B = batch.start_corners.shape[0]
     T = cfg.max_action_len
     dev = batch.start_corners.device
@@ -188,8 +204,11 @@ def rollout_teacher_fused(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
     feats = _tower_features(darknet_model, x, cfg)
     if cfg.language_only:
         feats = torch.zeros_like(feats)
-    actions, sal_head = _et_actions(vln_model, batch, cfg, feats, dir_feat,
-                                    geo["ended_pre"], generator)
+    if family == "et":
+        actions, sal_head = _et_actions(vln_model, batch, cfg, feats, dir_feat,
+                                        geo["ended_pre"], generator)
+    else:
+        actions, sal_head = _lstm_actions(vln_model, batch, feats, dir_feat, generator)
     actions = actions.float()
     sal_head = sal_head.reshape(T * B, *sal_head.shape[2:])
     gt_flat = gt_sal.reshape(T * B, *gt_sal.shape[2:])

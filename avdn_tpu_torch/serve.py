@@ -1,9 +1,9 @@
 """Batch-inference API (torch counterpart of ``avdn_tpu/serve.py``).
 
 Load weights once (random from ``--seed``, or a reference-format ``.pt``
-agent checkpoint), then map ANDH-format annotation items to predicted
-trajectories with a student-forced rollout (``compute_losses=False`` — no
-ground truth required). Batches pad to a fixed serving batch size.
+agent checkpoint in ``--family``'s layout), then map ANDH-format annotation
+items to predicted trajectories with a student-forced rollout
+(``compute_losses=False`` — no ground truth required). Batches pad to a fixed serving batch size.
 
     args = parse_args(["--resume_file", "agent.pt", "--root_dir", dataset])
     nav = Navigator(args)
@@ -73,7 +73,7 @@ class Navigator:
         resolve_inference_checkpoint(args)
         if args.resume_file:
             load_agent_weights((self.bert, self.darknet, self.vln),
-                               load_reference_agent(args.resume_file))
+                               load_reference_agent(args.resume_file, args.family))
         self.tokenizer = WordPieceTokenizer.load(args.bert_vocab_file)
         self.bcfg = batcher_config(args)
         self.bank = DeviceMapBank(

@@ -4,11 +4,13 @@ counterpart of ``avdn_tpu/train/checkpoints.py``).
 The reference snapshots a dict of three submodel entries per checkpoint
 file, ``{lang_model, vision_model, vln_model}`` each ``{epoch, state_dict,
 optimizer}``, and selects the best by val_unseen SPL
-(src/xview_et/agent.py:899-945, src/xview_et/main.py:200-204). The port
-writes that layout as one ``.pt``: the ``state_dict``s in the reference's
-key layout (the BatchNorm running statistics inside the vision model's), so
-``compat/from_jax.py:load_reference_agent`` and ``valid()`` read a training
-checkpoint unchanged; ``optimizer`` holds the port's Adam state (``count``
+(src/xview_et/agent.py:899-945, src/xview_et/main.py:200-204); the LSTM
+family's has two, ``{lang_model, vln_model}``, the Darknet nested in the
+VLN model under ``vision_model.`` (src/xview_lstm/agent.py:860-877). The
+port writes its family's layout as one ``.pt``: the ``state_dict``s in the
+reference's key layout (the BatchNorm running statistics inside the vision
+model's), so ``compat/from_jax.py:load_reference_agent`` and ``valid()``
+read a training checkpoint unchanged; ``optimizer`` holds the port's Adam state (``count``
 and the moments by parameter name); a top-level ``step`` holds the train
 step. ``asynchronous=True`` copies the state to the host and writes on a
 background thread, the counterpart of orbax's async save;
@@ -22,6 +24,8 @@ import threading
 from typing import Dict, List
 
 import torch
+
+from avdn_tpu_torch.compat.from_jax import nest_lstm_agent, split_lstm_agent
 
 #: the checkpoint's submodel entries, in the train state's order
 ENTRIES = ("lang_model", "vision_model", "vln_model")
@@ -38,11 +42,39 @@ def _to_host(tree):
 
 
 def _snapshot(state) -> Dict:
+    """The checkpoint blob of ``state`` in its family's layout: ET three
+    entries; LSTM ``lang_model`` and ``vln_model``, the Darknet's weights,
+    statistics and Adam moments under ``vision_model.`` in ``vln_model``
+    (its count is the VLN optimizer's: both step every step)."""
     blob = {"step": state.step}
     for key, model, opt in zip(ENTRIES, state.models(), state.optimizers()):
         blob[key] = {"epoch": state.step + 1, "state_dict": model.state_dict(),
                      "optimizer": opt.state_dict()}
+    if state.family == "lstm":
+        vision, vln = blob.pop("vision_model"), blob["vln_model"]
+        vln["state_dict"] = nest_lstm_agent(vision["state_dict"], vln["state_dict"])
+        for m in ("mu", "nu"):
+            vln["optimizer"][m] = nest_lstm_agent(vision["optimizer"][m],
+                                                  vln["optimizer"][m])
     return _to_host(blob)
+
+
+def _entries(blob: Dict, family: str) -> Dict:
+    """The three ``{state_dict, optimizer}`` entries of a checkpoint blob of
+    ``family``'s layout, in the train state's order (:data:`ENTRIES`)."""
+    if family != "lstm":
+        return {key: blob[key] for key in ENTRIES}
+    vln = blob["vln_model"]
+    vision_sd, vln_sd = split_lstm_agent(vln["state_dict"])
+    opt = vln.get("optimizer")
+    vision_opt = vln_opt = opt
+    if isinstance(opt, dict) and "mu" in opt:
+        split = {m: split_lstm_agent(opt[m]) for m in ("mu", "nu")}
+        vision_opt, vln_opt = ({"count": opt["count"], **{m: split[m][i] for m in split}}
+                               for i in (0, 1))
+    return {"lang_model": blob["lang_model"],
+            "vision_model": {"state_dict": vision_sd, "optimizer": vision_opt},
+            "vln_model": dict(vln, state_dict=vln_sd, optimizer=vln_opt)}
 
 
 def _write(blob: Dict, path: str) -> None:
@@ -74,22 +106,24 @@ def wait_for_saves() -> None:
 
 
 def load_checkpoint(path: str, state, optimizer: bool = True) -> int:
-    """Load a checkpoint into ``state`` in place: the three modules strictly
-    (BatchNorm statistics included) and, with ``optimizer``, the three
-    optimizers' states. Returns and sets the checkpoint's step (for a
-    reference checkpoint without one, its ``epoch`` − 1, as the reference's
-    loader returns it)."""
+    """Load a checkpoint of ``state.family``'s layout into ``state`` in
+    place: the three modules strictly (BatchNorm statistics included) and,
+    with ``optimizer``, the three optimizers' states. Returns and sets the
+    checkpoint's step (for a reference checkpoint without one, its
+    ``epoch`` − 1, as the reference's loader returns it)."""
     blob = torch.load(path, map_location="cpu", weights_only=False)
+    entries = _entries(blob, state.family)
     for key, model in zip(ENTRIES, state.models()):
-        sd = {k: v for k, v in blob[key]["state_dict"].items()
+        sd = {k: v for k, v in entries[key]["state_dict"].items()
               if k != "bert.embeddings.position_ids"}  # HF's buffer, no weight
         model.load_state_dict(sd, strict=True)
     if optimizer:
         for key, opt in zip(ENTRIES, state.optimizers()):
-            if not isinstance(blob[key].get("optimizer"), dict) or "mu" not in blob[key]["optimizer"]:
+            if not isinstance(entries[key].get("optimizer"), dict) or \
+                    "mu" not in entries[key]["optimizer"]:
                 raise KeyError(f"{path}: {key} holds no optimizer state of the "
                                "port's (--resume_optimizer needs one)")
-            opt.load_state_dict(blob[key]["optimizer"])
+            opt.load_state_dict(entries[key]["optimizer"])
     state.step = int(blob.get("step", int(blob["vln_model"].get("epoch", 1)) - 1))
     return state.step
 

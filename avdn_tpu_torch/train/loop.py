@@ -44,7 +44,7 @@ import torch
 from torch import nn
 
 from avdn_tpu_torch.compat.from_jax import load_agent_weights, load_reference_agent
-from avdn_tpu_torch.config import Args
+from avdn_tpu_torch.config import Args, check_family
 from avdn_tpu_torch.data.annotations import ANDHDataset
 from avdn_tpu_torch.data.batcher import BatcherConfig, make_train_batch
 from avdn_tpu_torch.data.maps import DeviceMapBank, load_map_image
@@ -55,6 +55,7 @@ from avdn_tpu_torch.metrics.nav import assemble_trajectories, eval_metrics
 from avdn_tpu_torch.models.bert import BertConfig, BertLanguageEncoder
 from avdn_tpu_torch.models.darknet import Darknet, DarknetConfig
 from avdn_tpu_torch.models.et import ETConfig, HAATransformer
+from avdn_tpu_torch.models.lstm import HAALSTM, LSTMConfig
 from avdn_tpu_torch.sim.warp2pass import auto_render_crop
 from avdn_tpu_torch.train import checkpoints as ckpt
 from avdn_tpu_torch.train.step import (
@@ -88,19 +89,20 @@ def train_bf16(args: Args) -> bool:
 
 
 def check_supported(args: Args, device: torch.device) -> None:
-    """Raise ``NotImplementedError`` for every flag the port cannot run yet,
-    naming the ROADMAP.md item that brings it."""
+    """Raise ``ValueError`` for an unknown ``--family``, and
+    ``NotImplementedError`` for every flag the port cannot run yet, naming
+    the ROADMAP.md item that brings it."""
+    check_family(args.family)
     if args.world_size > 1 or int(os.environ.get("AVDN_NUM_PROCESSES", "0") or 0) > 1:
         raise NotImplementedError(
             "multi-process and data-parallel runs are ROADMAP.md queue 1 item 14")
-    if args.family != "et":
-        raise NotImplementedError(
-            f"--family {args.family}: the LSTM family is ROADMAP.md queue 1 item 11")
 
 
 def build_models(args: Args, device: torch.device, bf16: bool = False):
-    """BERT, Darknet and the ET trunk at the flag widths on ``device`` (in
-    eval mode): float32 parameters, computing in bf16 with ``bf16``."""
+    """BERT, Darknet and the VLN model of ``--family`` (the ET trunk, or
+    ``HAALSTM`` with ``hidden_size = --demb``) at the flag widths on
+    ``device`` (in eval mode): float32 parameters, computing in bf16 with
+    ``bf16``."""
     dtype = torch.bfloat16 if bf16 else torch.float32
     if args.demb == 768 and args.bert_layers == 12:
         bert_cfg = BertConfig()
@@ -113,10 +115,14 @@ def build_models(args: Args, device: torch.device, bf16: bool = False):
             dk_cfg = DarknetConfig.from_text(f.read(), img_size=224)
     else:
         dk_cfg = DarknetConfig.default(img_size=224)
-    vln = HAATransformer(ETConfig(demb=args.demb, encoder_heads=args.encoder_heads,
-                                  encoder_layers=args.encoder_layers,
-                                  dropout_transformer=args.dropout_transformer_encoder,
-                                  dropout_emb=args.dropout_emb), dtype=dtype)
+    check_family(args.family)
+    if args.family == "lstm":
+        vln = HAALSTM(LSTMConfig(hidden_size=args.demb), dtype=dtype)
+    else:
+        vln = HAATransformer(ETConfig(demb=args.demb, encoder_heads=args.encoder_heads,
+                                      encoder_layers=args.encoder_layers,
+                                      dropout_transformer=args.dropout_transformer_encoder,
+                                      dropout_emb=args.dropout_emb), dtype=dtype)
     models = (BertLanguageEncoder(bert_cfg, dtype), Darknet(dk_cfg, dtype=dtype), vln)
     return tuple(m.to(device).eval() for m in models)
 
@@ -146,10 +152,10 @@ def init_state(models, generator: torch.Generator, args: Args = None) -> None:
                 if isinstance(mod, nn.BatchNorm2d):
                     mod.reset_running_stats()
         for name, p in model.named_parameters():
-            if name.endswith("in_proj_weight"):
+            if name.endswith(("in_proj_weight", "weight_ih", "weight_hh")):
                 fan_in = p.shape[1]
                 p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
-            elif name.endswith("in_proj_bias"):
+            elif name.endswith(("in_proj_bias", "bias_ih", "bias_hh")):
                 p.zero_()
     if args is not None:
         if args.bert_weight_file and os.path.exists(args.bert_weight_file):
@@ -260,7 +266,8 @@ def describe_eval_mode(cfg: TrainConfig, models) -> str:
                                    if cfg.render_subsample > 1 else "")
     tower = ("int8" if cfg.quant == "int8" else
              "BN-folded" if cfg.fold_bn_eval else "unfolded")
-    trunk = "KV-decode trunk" if cfg.et_decode_trunk else "re-encode trunk"
+    trunk = ("LSTM cell" if cfg.family == "lstm" else
+             "KV-decode trunk" if cfg.et_decode_trunk else "re-encode trunk")
     return (f"towers {str(models[0].dtype).replace('torch.', '')}, {tower} "
             f"Darknet, {trunk}, {render}")
 
@@ -478,7 +485,7 @@ def valid(args: Args, device=None):
     models = build_models(args, device, bf16=eval_bf16(args, device))
     init_state(models, torch.Generator().manual_seed(args.seed))
     if args.resume_file:
-        load_agent_weights(models, load_reference_agent(args.resume_file))
+        load_agent_weights(models, load_reference_agent(args.resume_file, args.family))
         print(f"Imported reference checkpoint {args.resume_file}")
     tokenizer = WordPieceTokenizer.load(args.bert_vocab_file)
     bcfg = batcher_config(args)

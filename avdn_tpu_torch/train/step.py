@@ -15,7 +15,8 @@ Training (``make_train_step``):
 * three optimizers (language tower, vision tower, VLN model), all Adam or
   AdamW at the same lr with torch's defaults (``train/optim.py``, optax's
   update order); the global-norm clip at 40 on the VLN group only
-  (agent.py:247), on the vision tower too under ``darknet_in_vln``;
+  (agent.py:247), and under ``darknet_in_vln`` (the LSTM family) a clip of
+  its own on the vision tower, as the JAX package clips it;
 * dropout from the step's ``torch.Generator`` and BatchNorm on batch
   statistics, the simulator feedback detached (``rollout/engine.py``);
 * ``--grad_accum K``: K micro-batches, each loss divided by the full B,
@@ -29,6 +30,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from avdn_tpu_torch.config import check_family
 from avdn_tpu_torch.device import use_fp32_numerics
 from avdn_tpu_torch.models.darknet import Darknet, fold_darknet_params, output_channels
 from avdn_tpu_torch.models.darknet_quant import QuantDarknet, quantize_darknet_params
@@ -37,6 +39,7 @@ from avdn_tpu_torch.rollout.engine import (
     EpisodeBatch,
     RolloutConfig,
     make_et_step,
+    make_lstm_step,
     rollout,
 )
 from avdn_tpu_torch.rollout.fused import rollout_teacher_fused
@@ -124,9 +127,9 @@ def _encode_language(bert_model, batch: TrainBatch, cfg: TrainConfig,
 
 def _run_family_rollout(cfg: TrainConfig, roll_cfg: RolloutConfig, models,
                         bert_out, batch: TrainBatch, map_bank, generator):
-    """ET rollout: teacher forcing with ``fused_teacher`` takes the
-    time-fused path, everything else the engine's step loop (the branch of
-    the JAX driver)."""
+    """The family's rollout: teacher forcing with ``fused_teacher`` takes
+    the time-fused path, everything else the engine's step loop with the
+    family's closure (the branch of the JAX driver)."""
     darknet_model, vln_model = models
     lang_feat, lang_cls = bert_out
     ep = dataclasses.replace(batch.episode, lang_feat=lang_feat, lang_cls=lang_cls,
@@ -135,7 +138,8 @@ def _run_family_rollout(cfg: TrainConfig, roll_cfg: RolloutConfig, models,
         return rollout_teacher_fused(map_bank=map_bank, batch=ep, cfg=roll_cfg,
                                      family=cfg.family, darknet_model=darknet_model,
                                      vln_model=vln_model, generator=generator)
-    step, init_state = make_et_step(darknet_model, vln_model, ep, roll_cfg, generator)
+    make_step = make_et_step if cfg.family == "et" else make_lstm_step
+    step, init_state = make_step(darknet_model, vln_model, ep, roll_cfg, generator)
     init = init_state(output_channels(darknet_model.cfg)[-1], 49)
     out, _ = rollout(map_bank=map_bank, batch=ep, cfg=roll_cfg, model_step=step,
                      init_model_state=init, generator=generator)
@@ -143,15 +147,12 @@ def _run_family_rollout(cfg: TrainConfig, roll_cfg: RolloutConfig, models,
 
 
 def check_rollout_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
-    if cfg.family != "et":
-        raise NotImplementedError(
-            f"--family {cfg.family}: the LSTM family is ROADMAP.md queue 1 item 11")
+    """Raise ``ValueError`` for a family that does not exist."""
+    check_family(cfg.family)
 
 
 def check_train_supported(cfg: TrainConfig) -> None:
-    """Raise for a train config the port cannot run yet (naming its ROADMAP
-    item) or that is malformed."""
+    """Raise ``ValueError`` for a malformed train config."""
     check_rollout_supported(cfg)
     if cfg.remat_policy not in ("full", "dots"):
         raise ValueError(f"--remat_policy {cfg.remat_policy!r}: choose 'full' or 'dots'")
@@ -167,7 +168,8 @@ def check_train_supported(cfg: TrainConfig) -> None:
 @dataclasses.dataclass
 class TrainState:
     """The three modules (parameters and BatchNorm running statistics), their
-    three optimizers and the step count."""
+    three optimizers, the step count and the model family (which sets the
+    checkpoint layout, ``train/checkpoints.py``)."""
 
     bert: torch.nn.Module
     darknet: torch.nn.Module
@@ -176,6 +178,7 @@ class TrainState:
     opt_darknet: Adam
     opt_vln: Adam
     step: int = 0
+    family: str = "et"
 
     def models(self):
         return self.bert, self.darknet, self.vln
@@ -204,7 +207,8 @@ def create_train_state(cfg: TrainConfig, bert, darknet, vln) -> TrainState:
                       opt_bert=_make_optimizer(cfg, bert, with_clip=False),
                       opt_darknet=_make_optimizer(cfg, darknet,
                                                   with_clip=cfg.darknet_in_vln),
-                      opt_vln=_make_optimizer(cfg, vln, with_clip=True))
+                      opt_vln=_make_optimizer(cfg, vln, with_clip=True),
+                      family=cfg.family)
 
 
 def _micro_batch(batch: TrainBatch, k: int, K: int) -> TrainBatch:

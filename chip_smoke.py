@@ -9,11 +9,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. build   — every CUDA kernel under avdn_tpu_torch/csrc, one nvcc each, in
              parallel, into build/avdn_tpu_torch/.
 3. kernels — each kernel against its plain PyTorch version on the card at
-             the main path's shapes (the fused saliency kernel: B = 8 and 16,
-             the per-step batches, and 80, 160 and 240, T·B of the fused
-             teacher path; each nss_r; repeated launches bitwise equal; the
-             backward of −NSS to the 8×8 saliency head, ``grad_kernel``, at
-             N = 8, 16, 80, 160 and 240, fp32 and bf16 heads, against the
+             the main path's shapes (the fused saliency kernel: B = 4, 8 and
+             16, the per-step batches, and 40, 80, 160 and 240, T·B of the
+             fused teacher path; each nss_r; repeated launches bitwise equal;
+             the backward of −NSS to the 8×8 saliency head, ``grad_kernel``,
+             at the same N, fp32 and bf16 heads, against the
              plain version, with an empty-ground-truth and a constant-head
              item, one launch per backward and no other kernel, no upsample
              backward and no full-resolution buffer in it), with device
@@ -62,6 +62,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
              and on the CPU: loss and grad norms within 1e-4 in fp32, and
              within 2e-2 in the production recipe's bf16 (teacher feedback
              through the step loop, fp32 render weights on both sides).
+6d. lstm   — the HAA-LSTM family (``--family lstm``: BERT-base, Darknet-53,
+             ``HAALSTM`` hidden 768, T = 10) from a random init written as a
+             reference LSTM-layout .pt: serving (no saliency launch), the
+             nav eval, the fused and step HA evals (held against each other)
+             and ``valid()`` at the reference numerics and the defaults; the
+             ``cli.train_lstm`` at ``scripts/run_lstm_haa.sh``'s recipe (B =
+             4, ``--nss_w 0``: forward T + 1, backward 0 launches a step), one
+             step at ``--nss_w 0.1`` (the head gradient T times at N = 4),
+             and card vs CPU at tiny width (a student rollout, a train step;
+             1e-4).
 7. render  — the two-pass render fp32 on the card against the CPU (B = 2),
              bf16 against fp32 weights (B = 8), and the per-call time of the
              exact and two-pass renders at B = 8 and N = 80.
@@ -102,10 +112,12 @@ MAP_PX = 2048
 LAT_RATIO = 5e-6  # degrees per pixel (xView-like ground sampling)
 DEG_TO_M = 11.13e4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-# B of the saliency kernel: the per-step B (8; 16 in the production preset)
-# and the fused teacher path's T·B (80 here, 160 in the production phase;
+# B of the saliency kernel: the per-step B (8; 16 in the production preset;
+# 4 in the LSTM recipe, scripts/run_lstm_haa.sh) and the fused teacher
+# path's T·B (80 here, 160 in the production phase, 40 in the LSTM recipe;
 # 15 × 16 at the default horizon)
-SALIENCY_BATCHES = (SERVE_BATCH, 16, T_STEPS * SERVE_BATCH, T_STEPS * 16, 15 * 16)
+SALIENCY_BATCHES = (4, SERVE_BATCH, 16, T_STEPS * 4, T_STEPS * SERVE_BATCH, T_STEPS * 16,
+                    15 * 16)
 COLD_BYTES = 128 * 2 ** 20  # input copies cycled through for an L2-cold time
 
 
@@ -582,11 +594,6 @@ def phase_valid(card, nav, maps, device="cuda", extra_args=(), defaults=False):
     weights as the checkpoint and runs without ``--inference`` (no debug
     images); the ``defaults`` run (no render or dtype flag) is the CLI's
     ``--inference True``, debug images included."""
-    import torch
-
-    from avdn_tpu_torch.ops.saliency import saliency_stats
-    from avdn_tpu_torch.train.loop import valid
-
     root = VALID_ROOT
     pt = os.path.join(root, "agent.pt")
     tag = "[defaults]" if defaults else "[valid]"
@@ -600,6 +607,20 @@ def phase_valid(card, nav, maps, device="cuda", extra_args=(), defaults=False):
         "--root_dir", os.path.join(root, "data"),
         "--inference", "True" if defaults else "False",
         "--resume_file", pt, *extra_args], defaults=defaults)
+    return run_valid(tag, args, card, device, defaults)
+
+
+def run_valid(tag, args, card, device="cuda", defaults=False):
+    """``valid(args)`` on the smoke dataset's val splits: T saliency launches
+    per nav batch and one per HA batch (checked on the card), the metric
+    keys of the golden (``eval_metrics_twopass_bf16.json`` with
+    ``defaults``, else ``eval_metrics_exact.json``) with finite values, and
+    under ``--inference`` the debug images. Returns the launches."""
+    import torch
+
+    from avdn_tpu_torch.ops.saliency import saliency_stats
+    from avdn_tpu_torch.train.loop import valid
+
     for name in ("metrics.jsonl", "valid.txt"):
         if os.path.exists(os.path.join(args.log_dir, name)):
             os.remove(os.path.join(args.log_dir, name))
@@ -610,7 +631,7 @@ def phase_valid(card, nav, maps, device="cuda", extra_args=(), defaults=False):
     sync(device)
     wall = time.perf_counter() - t0
     launches = saliency_stats.launches
-    n_batches = -(-16 // SERVE_BATCH) + -(-8 // SERVE_BATCH)
+    n_batches = -(-16 // args.batch_size) + -(-8 // args.batch_size)
     want = n_batches * (T_STEPS + 1)
     if torch.device(device).type == "cuda" and launches != want:
         fail(f"{tag} valid: {launches} saliency_stats launches, expected {want} "
@@ -632,7 +653,7 @@ def phase_valid(card, nav, maps, device="cuda", extra_args=(), defaults=False):
     if bad:
         fail(f"{tag} valid: non-finite metrics {bad}")
     n_images = 0
-    if defaults:
+    if args.inference:
         images = os.listdir(os.path.join(args.pred_dir, "debug_images"))
         overlays = [n for n in images if "_att" not in n and "_input" not in n]
         heatmaps = [n for n in images if "_pred_att_" in n]
@@ -1048,7 +1069,7 @@ def phase_profile(nav, items, card):
         time_layers(layers, card, "[profile]", B)
 
 
-GRAD_BATCHES = (SERVE_BATCH, 16, T_STEPS * SERVE_BATCH, T_STEPS * 16, 15 * 16)
+GRAD_BATCHES = SALIENCY_BATCHES
 #: a two-conv Darknet for the card-vs-CPU train step (the 224 px input to a
 #: (32, 7, 7) feature map, as the full tower's (512, 7, 7))
 TINY_DARKNET_CFG = """
@@ -1104,8 +1125,9 @@ HEAD_GRAD_BF16_FLIP_SHARE = 0.01
 
 def phase_grad_kernel(card):
     """The backward of −NSS to the saliency head (``csrc/saliency_head_grad.cu``)
-    on the card, at N = 8 and 16 (a step of the reference and the production
-    recipe), 80 and 160 (the fused teacher's T·B) and 240, for float32 and
+    on the card, at N = 4, 8 and 16 (a step of the LSTM recipe, the reference
+    and the production recipe), 40, 80 and 160 (the fused teacher's T·B) and
+    240, for float32 and
     bfloat16 heads and each nss_r, on inputs with a constant head (std = 0)
     and an empty ground truth, through ``saliency_head_reductions`` and the
     loss's ``where(valid, −NSS, 0)`` with random item weights: one forward
@@ -1226,22 +1248,29 @@ PROD_ROOT = os.path.join(ROOT, "build", "chip_smoke_production")
 PROD_BATCH = 16  # --preset production's batch_size
 
 
-def _train_twice(tag, root, out, flags, device, card, batch):
-    """The train CLI twice on ``root``'s dataset into ``out``: ``--iters 3
+def _train_twice(tag, root, out, flags, device, card, batch, entry="train_et"):
+    """The train CLI (``avdn_tpu_torch.cli.<entry>``) twice on ``root``'s
+    dataset into ``out``: ``--iters 3
     --log_every 1`` (one interval of 3 steps, its checkpoint and
     validation), then ``--resume_file latest`` and 3 more steps. Each step
     timed (synchronised) with its saliency launches, forward and backward;
     on the card the fifth step (the resume run's second) under
     torch.profiler. Checks 6 finite steps, the checkpoints written and
-    loadable into ``valid()``'s models and the resume. Returns ``(steps,
-    {path: forward launches}, {path: backward launches}, peak GiB)``."""
+    loadable into ``valid()``'s models and the resume. The peak memory is
+    each step's ``max_memory_allocated`` less what was allocated before its
+    run began (the run's models, Adam moments and activations; not what the
+    caller holds, nor the previous run's state, released first). Returns
+    ``(steps, {path: forward launches}, {path: backward launches}, peak
+    GiB)``."""
+    import gc
     import shutil
 
     import numpy as np
     import torch
 
     import avdn_tpu_torch.train.loop as loop
-    from avdn_tpu_torch.cli.train_et import main as cli_main
+    import importlib
+
     from avdn_tpu_torch.compat.from_jax import load_agent_weights, load_reference_agent
     from avdn_tpu_torch.ops.saliency import saliency_head_grad, saliency_stats
     from torch.profiler import ProfilerActivity, profile
@@ -1250,6 +1279,7 @@ def _train_twice(tag, root, out, flags, device, card, batch):
     shutil.rmtree(out, ignore_errors=True)
     steps = []  # per step: wall, forward and backward launches, profiled or not
     real = loop.make_train_step
+    mem_base = [0]  # bytes allocated when the current run began
 
     def make_observed_step(*a, **kw):
         step = real(*a, **kw)
@@ -1258,6 +1288,8 @@ def _train_twice(tag, root, out, flags, device, card, batch):
             sync(device)
             fwd, bwd = saliency_stats.launches, saliency_head_grad.launches
             profiled = on_card and len(steps) == 4  # the resume run's second
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             if profiled:
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1270,7 +1302,9 @@ def _train_twice(tag, root, out, flags, device, card, batch):
                 steps.append({})
             steps[-1].update(wall=time.perf_counter() - t0,
                              fwd=saliency_stats.launches - fwd,
-                             bwd=saliency_head_grad.launches - bwd)
+                             bwd=saliency_head_grad.launches - bwd,
+                             peak=(torch.cuda.max_memory_allocated() - mem_base[0]
+                                   if on_card else float("nan")))
             return res
 
         return observed
@@ -1279,11 +1313,14 @@ def _train_twice(tag, root, out, flags, device, card, batch):
             "--max_action_len", str(T_STEPS), "--batch_size", str(batch),
             "--iters", "3", "--log_every", "1", *flags]
     fwd_by_path, bwd_by_path, histories = {}, {}, []
+    cli_main = importlib.import_module(f"avdn_tpu_torch.cli.{entry}").main
     loop.make_train_step = make_observed_step
     try:
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
         for name, extra in ((tag, []), (tag + "_resume", ["--resume_file", "latest"])):
+            state = history = None  # the previous run's models and moments
+            gc.collect()
+            if on_card:
+                mem_base[0] = torch.cuda.memory_allocated()
             saliency_stats.launches = saliency_head_grad.launches = 0
             t0 = time.perf_counter()
             state, history = cli_main(base + extra, device=device)
@@ -1294,11 +1331,11 @@ def _train_twice(tag, root, out, flags, device, card, batch):
             histories += history
             log(f"[{tag}] {name}: {len(history)} steps to step {state.step} in "
                 f"{wall:.3f} s (with the checkpoint and the validation), saliency "
-                f"launches forward {fwd_by_path[name]} backward {bwd_by_path[name]} | "
-                f"{card}")
+                f"launches forward {fwd_by_path[name]} backward {bwd_by_path[name]}, "
+                f"{mem_base[0] / 2 ** 30:.2f} GiB allocated before the run | {card}")
     finally:
         loop.make_train_step = real
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    peak_gb = max(st["peak"] for st in steps) / 2 ** 30
 
     if state.step != 6 or len(histories) != 6:
         fail(f"[{tag}] ended at step {state.step} after {len(histories)} steps, "
@@ -1311,10 +1348,11 @@ def _train_twice(tag, root, out, flags, device, card, batch):
     names = sorted(os.listdir(ckpt_dir))
     if names != ["best_val_unseen.pt", "latest_dict_3.pt", "latest_dict_6.pt"]:
         fail(f"[{tag}] checkpoints written: {names}")
-    args = build_args(os.path.join(out, "load"), [*flags, "--root_dir", root])
+    args = build_args(os.path.join(out, "load"), [*flags, "--root_dir", root,
+                                                  "--family", state.family])
     for name in ("latest_dict_6.pt", "best_val_unseen.pt"):
         load_agent_weights(loop.build_models(args, torch.device(device)),
-                           load_reference_agent(os.path.join(ckpt_dir, name)))
+                           load_reference_agent(os.path.join(ckpt_dir, name), args.family))
     with open(os.path.join(out, "logs", "train.txt")) as f:
         resumed = "latest_dict_3.pt, iteration 3" in f.read()
     if not resumed:
@@ -1327,19 +1365,19 @@ def _train_twice(tag, root, out, flags, device, card, batch):
 EARLIER_STEP_LAUNCHES = {"train": "131,808", "train_production": "142,126-142,142"}
 
 
-def _train_summary(tag, steps, peak_gb, card, on_card):
-    """Per-step lines, the saliency launches held to T + 1 forward and T
-    backward a step (T in the student pass, one at T·B in the fused teacher
-    pass; backward only where the loss holds −NSS, the student pass: the
-    teacher pass runs with nss_w = 0), the median wall of the unprofiled
-    steps after the first (which builds and tunes) with the first apart,
-    the peak memory and the profiled step (device idle share, launches,
-    top kernels)."""
+def _train_summary(tag, steps, peak_gb, card, on_card, bwd_per_step=T_STEPS):
+    """Per-step lines, the saliency launches held to T + 1 forward and
+    ``bwd_per_step`` backward a step (T in the student pass, one at T·B in
+    the fused teacher pass; backward only where the loss holds −NSS, the
+    student pass at nss_w > 0: the teacher pass runs with nss_w = 0), the
+    median wall of the unprofiled steps after the first (which builds and
+    tunes) with the first apart, the peak memory and the profiled step
+    (device idle share, launches, top kernels)."""
     if on_card:
         for i, st in enumerate(steps):
-            if (st["fwd"], st["bwd"]) != (T_STEPS + 1, T_STEPS):
+            if (st["fwd"], st["bwd"]) != (T_STEPS + 1, bwd_per_step):
                 fail(f"[{tag}] step {i + 1}: saliency launches forward {st['fwd']} "
-                     f"backward {st['bwd']}, expected {T_STEPS + 1}, {T_STEPS}")
+                     f"backward {st['bwd']}, expected {T_STEPS + 1}, {bwd_per_step}")
     for i, st in enumerate(steps):
         m = st["metrics"]
         log(f"[{tag}] step {i + 1}: wall {st['wall'] * 1e3:.1f} ms"
@@ -1349,7 +1387,7 @@ def _train_summary(tag, steps, peak_gb, card, on_card):
     walls = [st["wall"] for st in steps[1:] if "prof" not in st]
     summary = dict(step_wall_ms_median=statistics.median(walls) * 1e3,
                    first_step_ms=steps[0]["wall"] * 1e3, peak_gb=peak_gb,
-                   steps=len(steps), saliency_launches_per_step=[T_STEPS + 1, T_STEPS])
+                   steps=len(steps), saliency_launches_per_step=[T_STEPS + 1, bwd_per_step])
     if on_card:
         prof_step = next(st for st in steps if "prof" in st)
         kernels = kernel_events(prof_step["prof"])
@@ -1361,13 +1399,16 @@ def _train_summary(tag, steps, peak_gb, card, on_card):
         upsample_bwd = [e.key for e in kernels if "upsample_bilinear2d_backward" in e.key]
         if upsample_bwd:
             fail(f"[{tag}] the profiled step ran the upsample's backward: {upsample_bwd}")
+        earlier = (f" ({EARLIER_STEP_LAUNCHES[tag]} with the full-resolution gradient "
+                   "and the upsample's backward, PERF.md)" if tag in EARLIER_STEP_LAUNCHES
+                   else "")
         log(f"[{tag}] median step wall {summary['step_wall_ms_median']:.1f} ms over "
             f"{len(walls)} unprofiled steps after the first ({summary['first_step_ms']:.1f}"
             f" ms, it builds and tunes); profiled step: kernels {busy_ms:.3f} ms in "
-            f"{n_launches} launches ({EARLIER_STEP_LAUNCHES[tag]} with the "
-            f"full-resolution gradient and the upsample's backward, PERF.md), no "
-            f"upsample backward, device idle {summary['idle']:.3f} of the median "
-            f"wall; peak memory {peak_gb:.2f} GiB (max_memory_allocated) | {card}")
+            f"{n_launches} launches{earlier}, no upsample backward, device idle "
+            f"{summary['idle']:.3f} of the median wall; step peak memory {peak_gb:.2f} "
+            f"GiB (max_memory_allocated over the steps, less what was allocated before "
+            f"the run) | {card}")
         for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                         reverse=True)[:12]:
             log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
@@ -1498,48 +1539,71 @@ PARITY_CONFIGS = (
 PARITY_CONTROL = ("production", "fp32 towers", ["--bf16", "False"])
 
 
-def _tiny_train_step(name, flags, device):
-    """One train step's loss and the three groups' grad norms at tiny width
-    (BERT 2×64, the tiny Darknet, trunk 1×64, B = 2, T = 3, every dropout
-    rate 0) on ``device`` under ``flags``, from the seeded weights."""
+def _models_and_batch(args, device, n_items):
+    """``args``' models in the train dtype with the seed's weights on
+    ``device``, and a train batch of its first ``n_items`` train items:
+    ``(models, bank, batch)``."""
     import torch
 
     from avdn_tpu_torch.data.batcher import make_train_batch
     from avdn_tpu_torch.data.maps import DeviceMapBank
     from avdn_tpu_torch.data.tokenizer import WordPieceTokenizer
-    from avdn_tpu_torch.device import use_fp32_numerics
-    from avdn_tpu_torch.models.layers import Dropout
     from avdn_tpu_torch.serve import Navigator
-    from avdn_tpu_torch.train.loop import (batcher_config, build_models, init_state,
-                                           train_bf16, train_config_from_args)
-    from avdn_tpu_torch.train.optim import global_norm
-    from avdn_tpu_torch.train.step import make_loss_fn
+    from avdn_tpu_torch.train.loop import batcher_config, build_models, init_state, train_bf16
 
-    cfg_path = os.path.join(TRAIN_ROOT, "tiny_darknet.cfg")
-    os.makedirs(TRAIN_ROOT, exist_ok=True)
-    with open(cfg_path, "w") as f:
-        f.write(TINY_DARKNET_CFG)
-    args = build_args(os.path.join(TRAIN_ROOT, "parity"), [
-        "--root_dir", os.path.join(VALID_ROOT, "data"), "--demb", "64",
-        "--bert_layers", "2", "--encoder_heads", "4", "--encoder_layers", "1",
-        "--darknet_model_file", cfg_path, "--max_instr_len", "32",
-        "--dialog_pad", "64", "--max_action_len", "3", "--batch_size", "2",
-        "--map_bank_slots", "2", *flags])
-    use_fp32_numerics()
     with open(os.path.join(args.train_anno_dir, "train_data.json")) as f:
-        items = [Navigator._normalize_item(it) for it in json.load(f)[:2]]
+        items = [Navigator._normalize_item(it) for it in json.load(f)[:n_items]]
     models = build_models(args, torch.device(device), bf16=train_bf16(args))
     init_state(models, torch.Generator().manual_seed(SEED))
-    for m in models:
-        for mod in m.modules():
-            if isinstance(mod, Dropout):
-                mod.p = 0.0
-        m.train()
     bank = DeviceMapBank(args.train_dataset_dir, (args.map_bank_px,) * 2,
                          n_slots=args.map_bank_slots, device=device)
     arr, slots = bank.prepare(items)
     batch, _ = make_train_batch(items, WordPieceTokenizer.load(None), slots,
                                 batcher_config(args), device=device)
+    return models, arr, batch
+
+
+def _tiny_setup(flags, device, root=None, work=TRAIN_ROOT):
+    """Models at tiny width (BERT 2×64, the tiny Darknet, trunk 1×64 or the
+    LSTM cell at demb 64; every dropout rate 0, the seeded weights) on
+    ``device`` under ``flags``, and a batch of the first 2 train items (T =
+    3) of ``root`` (default: the phase-5 dataset): ``(args, models, bank,
+    batch)``. ``work`` holds the tiny Darknet cfg and the run's output."""
+    from avdn_tpu_torch.device import use_fp32_numerics
+    from avdn_tpu_torch.models.layers import Dropout
+
+    cfg_path = os.path.join(work, "tiny_darknet.cfg")
+    os.makedirs(work, exist_ok=True)
+    with open(cfg_path, "w") as f:
+        f.write(TINY_DARKNET_CFG)
+    args = build_args(os.path.join(work, "parity"), [
+        "--root_dir", root or os.path.join(VALID_ROOT, "data"), "--demb", "64",
+        "--bert_layers", "2", "--encoder_heads", "4", "--encoder_layers", "1",
+        "--darknet_model_file", cfg_path, "--max_instr_len", "32",
+        "--dialog_pad", "64", "--max_action_len", "3", "--batch_size", "2",
+        "--map_bank_slots", "2", *flags])
+    use_fp32_numerics()
+    models, arr, batch = _models_and_batch(args, device, 2)
+    for m in models:
+        for mod in m.modules():
+            if isinstance(mod, Dropout):
+                mod.p = 0.0
+    return args, models, arr, batch
+
+
+def _tiny_train_step(name, flags, device, root=None, work=TRAIN_ROOT):
+    """One train step's loss and the three groups' grad norms at tiny width
+    (``_tiny_setup``: B = 2, T = 3, every dropout rate 0) on ``device``
+    under ``flags``, from the seeded weights."""
+    import torch
+
+    from avdn_tpu_torch.train.loop import train_config_from_args
+    from avdn_tpu_torch.train.optim import global_norm
+    from avdn_tpu_torch.train.step import make_loss_fn
+
+    args, models, arr, batch = _tiny_setup(flags, device, root, work)
+    for m in models:
+        m.train()
     t0 = time.perf_counter()
     loss = make_loss_fn(train_config_from_args(args), *models)(
         batch, arr, torch.Generator(device).manual_seed(SEED), 2)
@@ -1550,6 +1614,19 @@ def _tiny_train_step(name, flags, device):
     log(f"[train_parity] {name} {device}: loss {res[0]!r}, grad norms bert {res[1]!r} "
         f"darknet {res[2]!r} vln {res[3]!r} ({time.perf_counter() - t0:.3f} s)")
     return res
+
+
+def _tiny_student_rollout(flags, device, root=None, work=TRAIN_ROOT):
+    """One student-forced eval rollout (the nav eval, losses on) at tiny
+    width (``_tiny_setup``) on ``device``: its outputs on the CPU."""
+    import torch
+
+    from avdn_tpu_torch.train.loop import eval_config_from_args
+    from avdn_tpu_torch.train.step import make_eval_rollout
+
+    args, models, arr, batch = _tiny_setup(flags, device, root, work)
+    fn = make_eval_rollout(eval_config_from_args(args), *models, teacher=False)
+    return fn(arr, batch, torch.Generator(device).manual_seed(SEED)).cpu()
 
 
 def _rel(a, b):
@@ -1586,6 +1663,228 @@ def phase_train_parity(card, devices=("cuda", "cpu")):
             log(f"[train_parity] {name} control: card's step vs the {devices[1]}'s "
                 f"with {PARITY_CONTROL[1]}: {rel_ctl:.3e} relative, outside the bar "
                 f"{tol} | {card}")
+
+
+LSTM_ROOT = os.path.join(ROOT, "build", "chip_smoke_lstm")
+LSTM_BATCH = 4  # scripts/run_lstm_haa.sh's batch_size
+#: scripts/run_lstm_haa.sh's training flags (its paths, schedule and
+#: pretrained-weight flags aside)
+LSTM_RECIPE = ["--feedback", "student", "--max_instr_len", "100", "--lr", "1e-5",
+               "--optim", "adamW", "--ml_weight", "0.2", "--nss_w", "0", "--nss_r", "0"]
+
+
+def save_lstm_agent(models, path):
+    """``(bert, darknet, lstm)`` as a reference LSTM agent checkpoint:
+    ``lang_model`` and ``vln_model``, the Darknet's keys under
+    ``vision_model.`` (src/xview_lstm/agent.py:860-877)."""
+    import torch
+
+    from avdn_tpu_torch.compat.from_jax import nest_lstm_agent
+
+    bert, darknet, vln = ({k: v.cpu() for k, v in m.state_dict().items()} for m in models)
+    torch.save({"lang_model": {"epoch": 1, "state_dict": bert},
+                "vln_model": {"epoch": 1, "state_dict": nest_lstm_agent(darknet, vln)}}, path)
+
+
+def write_lstm_dataset():
+    """The LSTM phase's dataset: the phase-5 val splits and maps (linked) and
+    12 of its train items, so that B = 4 takes 3 steps an epoch."""
+    data = os.path.join(LSTM_ROOT, "data")
+    anno = os.path.join(data, "AVDN", "annotations")
+    os.makedirs(anno, exist_ok=True)
+    src = os.path.join(VALID_ROOT, "data", "AVDN")
+    for split, n in (("val_seen", None), ("val_unseen", None), ("train", 3 * LSTM_BATCH)):
+        with open(os.path.join(src, "annotations", f"{split}_data.json")) as f:
+            part = json.load(f)[:n]
+        with open(os.path.join(anno, f"{split}_data.json"), "w") as f:
+            json.dump(part, f)
+    images = os.path.join(data, "AVDN", "train_images")
+    if not os.path.exists(images):
+        os.symlink(os.path.join(src, "train_images"), images)
+    return data
+
+
+def phase_lstm(card, maps, device="cuda", extra_args=()):
+    """The HAA-LSTM family (``--family lstm``) at full width (BERT-base,
+    Darknet-53 at 224 px, ``HAALSTM`` hidden 768 with its 192/576 cells,
+    T = 10) on the phase-5 dataset, from the seed's random init written as
+    a reference LSTM-layout ``.pt``: Navigator serves 3 requests of 8 (no
+    saliency launch); at the reference numerics the student nav eval (T
+    launches a batch), the fused HA eval (one at N = T·B = 80) and the step
+    HA eval over the 24 items, the two HA evals held against each other;
+    one nav-eval and one fused HA-eval batch profiled (wall, kernels,
+    launches, idle); ``valid()`` at the reference numerics and at the
+    shipped defaults (with ``--inference``); the ``cli.train_lstm`` at ``run_lstm_haa.sh``'s recipe
+    (B = 4, student feedback, ``--nss_w 0``): 3 steps, a checkpoint and a
+    validation, a resume and 3 more (forward T + 1 and backward 0 launches a
+    step); one step at ``--nss_w 0.1`` (the head-gradient kernel T times at
+    N = 4, no upsample backward); and at tiny width, dropout 0, one student
+    rollout at B = 2 and one train step on the card and on the CPU. Returns
+    ``({path: forward launches}, {path: backward launches}, summary)``."""
+    import dataclasses
+
+    import torch
+
+    from avdn_tpu_torch.ops.saliency import saliency_stats
+    from avdn_tpu_torch.serve import Navigator
+    from avdn_tpu_torch.train.loop import build_models, init_state
+    from avdn_tpu_torch.train.step import make_eval_rollout
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        log(f"[time] lstm {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
+    data = write_lstm_dataset()
+    pt = os.path.join(LSTM_ROOT, "lstm_agent.pt")
+    lstm_flags = ["--family", "lstm", "--root_dir", data, *extra_args]
+    args = build_args(os.path.join(LSTM_ROOT, "eval"), [*lstm_flags, "--resume_file", pt])
+    models = build_models(args, torch.device(device))
+    init_state(models, torch.Generator().manual_seed(SEED))
+    save_lstm_agent(models, pt)
+    del models
+    maps_by_name = {f"smoke_map_{k}": maps[k] for k in range(N_MAPS)}
+    nav = Navigator(args, serve_batch=SERVE_BATCH, device=device,
+                    map_loader=lambda it: maps_by_name[it["map_name"]])
+    sync(device)
+    c = nav.vln.cfg
+    log(f"[lstm] Navigator built from {os.path.basename(pt)} (BERT "
+        f"{nav.bert.cfg.num_layers}x{nav.bert.cfg.hidden_size}, HAALSTM hidden "
+        f"{c.hidden_size}, cells {c.dir_hidden}/{c.vis_hidden}, "
+        f"{sum(p.numel() for p in nav.vln.parameters())} params; stop threshold "
+        f"{nav.cfg.student_stop})")
+
+    # ---- serving: 3 requests of 8 items; no saliency statistics ----
+    items = make_items()
+    saliency_stats.launches = 0
+    t0 = time.perf_counter()
+    preds = {}
+    for lo in range(0, N_ITEMS, SERVE_BATCH):
+        preds.update(nav.navigate(items[lo: lo + SERVE_BATCH]))
+    serve_s = time.perf_counter() - t0
+    if len(preds) != N_ITEMS or saliency_stats.launches != 0:
+        fail(f"[lstm] serving: {len(preds)} predictions, {saliency_stats.launches} "
+             f"saliency launches (expected {N_ITEMS}, 0)")
+    log(f"[lstm] serving: {len(preds)} predictions in {serve_s:.3f} s "
+        f"(3 requests x {SERVE_BATCH}), saliency_stats launches 0 | {card}")
+
+    # ---- the nav eval, the fused and the step HA evals over the 24 items ----
+    norm = [Navigator._normalize_item(it) for it in items]
+    chunks = [nav.prepare(norm[lo: lo + SERVE_BATCH]) for lo in range(0, N_ITEMS, SERVE_BATCH)]
+    sync(device)
+    launches, outs = _run_paths((
+        ("lstm_nav_eval", make_eval_rollout(nav.cfg, nav.bert, nav.darknet, nav.vln,
+                                            teacher=False, compute_losses=True), T_STEPS),
+        ("lstm_ha_eval_fused", make_eval_rollout(nav.cfg, nav.bert, nav.darknet, nav.vln,
+                                                 teacher=True, collect_ha=True), 1),
+        ("lstm_ha_eval_step", make_eval_rollout(
+            dataclasses.replace(nav.cfg, fused_teacher=False), nav.bert, nav.darknet,
+            nav.vln, teacher=True, collect_ha=True), T_STEPS),
+    ), chunks, device, "[lstm]", card)
+    err = max(_rollouts_agree(f, s, f"[lstm] batch {i}") for i, (f, s) in enumerate(
+        zip(outs["lstm_ha_eval_fused"], outs["lstm_ha_eval_step"])))
+    log(f"[lstm] fused vs step HA eval: stops identical, max diff {err} (actions, "
+        "corners, HA)")
+    if on_card:
+        profile_rollouts(nav, chunks[0][:2], card, "[lstm-profile]")
+    del nav, chunks, outs
+    done("serving and evals")
+
+    # ---- valid(): the reference numerics, then the shipped defaults ----
+    launches["lstm_valid"] = run_valid(
+        "[lstm]", build_args(os.path.join(LSTM_ROOT, "valid"),
+                             [*lstm_flags, "--resume_file", pt]), card, device)
+    launches["lstm_defaults_valid"] = run_valid(
+        "[lstm defaults]", build_args(os.path.join(LSTM_ROOT, "valid_defaults"),
+                                      [*lstm_flags, "--resume_file", pt, "--inference",
+                                       "True"], defaults=True), card, device, defaults=True)
+    done("valid")
+
+    # ---- the train CLI at run_lstm_haa.sh's recipe ----
+    steps, fwd, bwd, peak = _train_twice(
+        "train_lstm", data, os.path.join(LSTM_ROOT, "train"),
+        [*LSTM_RECIPE, *extra_args], device, card, LSTM_BATCH, entry="train_lstm")
+    launches.update(fwd)
+    summary = _train_summary("train_lstm", steps, peak, card, on_card, bwd_per_step=0)
+    done("train")
+
+    # ---- one step at --nss_w 0.1: the head gradient, T launches at N = B ----
+    bwd["lstm_nss_step"] = _lstm_nss_step(card, data, device, extra_args)
+    done("nss step")
+
+    # ---- card vs CPU at tiny width, dropout 0 ----
+    if on_card:
+        card_out, cpu_out = (_tiny_student_rollout(["--family", "lstm"], d)
+                             for d in ("cuda", "cpu"))
+        if not torch.equal(card_out.alive_post, cpu_out.alive_post):
+            fail("[lstm] card vs CPU student rollout: stop steps differ")
+        err = _max_diff(card_out, cpu_out)
+        if not err <= 1e-4:
+            fail(f"[lstm] card vs CPU student rollout: actions differ by {err}")
+        res = {d: _tiny_train_step("lstm", ["--family", "lstm"], d) for d in ("cuda", "cpu")}
+        rel = _rel(res["cuda"], res["cpu"])
+        if not rel <= 1e-4:
+            fail(f"[lstm] card vs CPU train step: loss / grad norms differ by {rel}")
+        summary.update(card_vs_cpu_rollout=err, card_vs_cpu_train_step=rel)
+        log(f"[lstm] card vs CPU at tiny width, dropout 0, TF32 off: student rollout at "
+            f"B = 2 stop steps identical, max action diff {err}; one train step's loss "
+            f"and grad norms within {rel:.3e} relative (bar 1e-4) | {card}")
+    done("parity")
+    return launches, bwd, summary
+
+
+def _lstm_nss_step(card, data, device, extra_args=()):
+    """One ``--family lstm`` train step at B = 4, T = 10, ``--nss_w 0.1``,
+    full width (after one that builds): the forward kernel T + 1 times, the
+    head-gradient kernel T times at N = 4 (the student pass; the teacher
+    pass runs at nss_w 0), and under torch.profiler no upsample backward.
+    Returns the backward launches of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from avdn_tpu_torch.ops.saliency import saliency_head_grad, saliency_stats
+    from avdn_tpu_torch.train.loop import train_config_from_args
+    from avdn_tpu_torch.train.step import create_train_state, make_train_step
+
+    on_card = torch.device(device).type == "cuda"
+    args = build_args(os.path.join(LSTM_ROOT, "nss"), [
+        "--family", "lstm", "--root_dir", data, *LSTM_RECIPE, "--nss_w", "0.1",
+        "--batch_size", str(LSTM_BATCH), *extra_args])
+    cfg = train_config_from_args(args)
+    models, arr, batch = _models_and_batch(args, device, LSTM_BATCH)
+    state = create_train_state(cfg, *models)
+    step = make_train_step(cfg, *models)
+    gen = torch.Generator(device).manual_seed(SEED + 1)
+    step(state, arr, batch, gen)
+    sync(device)
+    saliency_stats.launches = saliency_head_grad.launches = 0
+    t0 = time.perf_counter()
+    if on_card:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            m = step(state, arr, batch, gen)
+            sync(device)
+    else:
+        m = step(state, arr, batch, gen)
+    wall = time.perf_counter() - t0
+    fwd, bwd = saliency_stats.launches, saliency_head_grad.launches
+    if on_card and (fwd, bwd) != (T_STEPS + 1, T_STEPS):
+        fail(f"[lstm] --nss_w 0.1 step: saliency launches forward {fwd} backward {bwd}, "
+             f"expected {T_STEPS + 1}, {T_STEPS}")
+    names = [e.key for e in kernel_events(prof)] if on_card else []
+    if any("upsample_bilinear2d_backward" in k for k in names):
+        fail("[lstm] --nss_w 0.1 step ran the upsample's backward")
+    if on_card and not any("head_grad_kernel" in k for k in names):
+        fail(f"[lstm] --nss_w 0.1 step: the profiler recorded no head-gradient kernel "
+             f"among {len(names)} kernels")
+    if not all(torch.isfinite(v) for v in m.values()):
+        fail(f"[lstm] --nss_w 0.1 step: non-finite {m}")
+    log(f"[lstm] one step at --nss_w 0.1, B = {LSTM_BATCH}: saliency launches forward "
+        f"{fwd} backward {bwd} (the head gradient at N = {LSTM_BATCH}), no upsample "
+        f"backward, loss {float(m['loss']):.6f}, wall {wall * 1e3:.1f} ms (profiled) | {card}")
+    return bwd
 
 
 def main() -> None:
@@ -1627,6 +1926,10 @@ def main() -> None:
     done("train production")
     phase_train_parity(card)
     done("train parity")
+    lstm_fwd, lstm_bwd, lstm_summary = phase_lstm(card, maps)
+    launches.update(lstm_fwd)
+    train_bwd.update(lstm_bwd)
+    done("lstm")
     phase_render(card, nav_def, chunks)
     done("render")
     phase_parity(nav, items)
@@ -1678,6 +1981,7 @@ def main() -> None:
         "by_batch": grec,
         "train_step": train_summary,
         "train_step_production": prod_summary,
+        "train_step_lstm": lstm_summary,
     }]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -6,12 +6,14 @@
 * Without a card, an entry point given no ``device`` raises instead of
   running on the CPU, and ``chip_smoke.py`` exits non-zero without a result.
 * Every eval mode of the JAX package is accepted (the shipped defaults and
-  the opt-in modes), and training at the reference configuration; flags the
-  port cannot run yet (the LSTM family, multi-process runs, the production
-  train recipe: bf16 training, remat, ``--preset production``) raise
-  ``NotImplementedError`` naming their ROADMAP.md item.
+  the opt-in modes), the LSTM family (its student stop threshold 0.25),
+  training at the reference configuration and the production recipe; what
+  the port cannot run yet (multi-process runs) raises
+  ``NotImplementedError`` naming its ROADMAP.md item, and an unknown family
+  ``ValueError``.
 """
 
+import dataclasses
 import os
 import re
 import shutil
@@ -47,8 +49,8 @@ def test_import_loads_no_jax_or_reference_package():
     modules = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("serve", "train.loop", "train.step", "train.optim",
                  "train.checkpoints", "utils.preemption", "rollout.fused",
-                 "models.et_fast", "data.annotations", "utils.logging",
-                 "utils.seed", "viz", "cli.main", "cli.train_et"):
+                 "models.et_fast", "models.lstm", "data.annotations", "utils.logging",
+                 "utils.seed", "viz", "cli.main", "cli.train_et", "cli.train_lstm"):
         assert "avdn_tpu_torch." + name in modules
     assert [m for m in modules if _forbidden(m)] == []
 
@@ -107,7 +109,6 @@ def test_chip_smoke_fails_without_card_or_package(tmp_path):
 
 
 UNSUPPORTED = {
-    "lstm": dict(family="lstm"),
     "multi_process": dict(world_size=2),
 }
 
@@ -120,6 +121,7 @@ SUPPORTED = {
     "subsample": (dict(render_subsample=2), "cpu", ("render_subsample", 2)),
     "int8": (dict(quant="int8"), "cpu", ("quant", "int8")),
     "decode_trunk": (dict(et_decode_trunk=True), "cpu", ("et_decode_trunk", True)),
+    "lstm": (dict(family="lstm"), "cpu", ("student_stop", 0.25)),
 }
 
 
@@ -148,7 +150,8 @@ def test_eval_mode_flags_supported(case, tmp_path):
     towers where requested or (unset) on the card, the two-pass render
     unless ``--render_twopass False``, the opt-in modes in the config (and
     in the rollout config where the rollout reads them; the int8 tower is
-    chosen when the rollout is built)."""
+    chosen when the rollout is built); ``--family lstm`` its student stop
+    threshold, 0.25 (and in the rollout config, its ``stop_threshold``)."""
     from avdn_tpu_torch.train.loop import (check_supported, eval_bf16,
                                            eval_config_from_args)
     from avdn_tpu_torch.train.step import check_rollout_supported
@@ -167,12 +170,33 @@ def test_eval_mode_flags_supported(case, tmp_path):
         assert getattr(cfg, field) == value
         roll = cfg.rollout_cfg(teacher=False)
         assert getattr(roll, field, value) == value
+        if field == "student_stop":
+            assert roll.stop_threshold == value
+
+
+def test_unknown_family_raises_before_models(tmp_path):
+    """``--family`` other than ``et`` or ``lstm`` is refused by
+    ``check_supported`` (so by ``valid()``, ``train()`` and ``Navigator``
+    before any model is built), by ``build_models`` and by
+    ``load_reference_agent``, each with ``ValueError``."""
+    from avdn_tpu_torch.compat.from_jax import load_reference_agent
+    from avdn_tpu_torch.serve import Navigator
+    from avdn_tpu_torch.train.loop import build_models, check_supported
+
+    args = _mode_args(tmp_path, dict(family="gru"))
+    cpu = torch.device("cpu")
+    for call in (lambda: check_supported(args, cpu), lambda: build_models(args, cpu),
+                 lambda: Navigator(args, device="cpu"),
+                 lambda: load_reference_agent(str(tmp_path / "none.pt"), "gru")):
+        with pytest.raises(ValueError, match="unknown family: gru"):
+            call()
 
 
 def test_fused_teacher_rollout_raises(tmp_path):
     """The fused teacher path runs in eval mode (the default for the HA
-    eval) and in train mode (the teacher half of the train step); the LSTM
-    family raises, naming its item, and a student config is refused."""
+    eval) and in train mode (the teacher half of the train step), for both
+    families; an unknown family raises ``ValueError`` in the rollout and in
+    the rollout check, and a student config is refused."""
     from torch import nn
 
     from avdn_tpu_torch.config import Args, postprocess_args
@@ -185,6 +209,9 @@ def test_fused_teacher_rollout_raises(tmp_path):
     cfg = eval_config_from_args(args)
     assert cfg.fused_teacher and cfg.fast_eval_trunk
     check_rollout_supported(cfg)
+    check_rollout_supported(dataclasses.replace(cfg, family="lstm"))
+    with pytest.raises(ValueError, match="choose 'et' or 'lstm'"):
+        check_rollout_supported(dataclasses.replace(cfg, family="gru"))
     roll = cfg.rollout_cfg(teacher=True)
     assert roll.fused_teacher and roll.fast_eval_trunk
     dk, vln = nn.Linear(1, 1), nn.Linear(1, 1)
@@ -192,8 +219,8 @@ def test_fused_teacher_rollout_raises(tmp_path):
     assert train_roll.train and train_roll.fused_teacher
     for r in (roll, train_roll):
         kw = dict(map_bank=None, batch=None, cfg=r, generator=None)
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            rollout_teacher_fused(family="lstm", darknet_model=dk, vln_model=vln, **kw)
+        with pytest.raises(ValueError, match="unknown family: gru"):
+            rollout_teacher_fused(family="gru", darknet_model=dk, vln_model=vln, **kw)
     with pytest.raises(ValueError, match="teacher forcing only"):
         rollout_teacher_fused(family="et", darknet_model=dk, vln_model=vln,
                               map_bank=None, batch=None, generator=None,

@@ -228,6 +228,12 @@ def test_carried_train_state_steps_like_optax(both):
     statistics, the three optimizers' moments and counts, the step), then
     one more step of the same gradients on each side: every parameter within
     1e-6 of its tensor's largest magnitude (``test_torch_optim.py``'s bar)."""
+    carried_train_state_steps_like_optax(both, "et")
+
+
+def carried_train_state_steps_like_optax(both, family):
+    """The check of :func:`test_carried_train_state_steps_like_optax` for
+    ``both`` (a fixture of ``family``'s models, JAX state and gradients)."""
     import optax
 
     from avdn_tpu.train import step as jax_step
@@ -258,15 +264,16 @@ def test_carried_train_state_steps_like_optax(both):
 
     jstate = jax.device_get(jax_step_once(jstate))
     entries = from_jax.train_state_entries(jstate, both["models"][1].cfg.block_dicts(),
-                                           args.bert_layers, args.encoder_layers)
+                                           args.bert_layers, args.encoder_layers, family)
     models = build_models(both["pargs"], torch.device("cpu"))
     pstate = create_train_state(train_config_from_args(both["pargs"]), *models)
     from_jax.load_train_state(pstate, entries)
     assert pstate.step == 1 and [o.count for o in pstate.optimizers()] == [1, 1, 1]
+    assert pstate.family == family
 
     jstate = jax.device_get(jax_step_once(jstate))
     want = from_jax.train_state_entries(jstate, both["models"][1].cfg.block_dicts(),
-                                        args.bert_layers, args.encoder_layers)
+                                        args.bert_layers, args.encoder_layers, family)
     for key, grp, opt in zip(("lang_model", "vision_model", "vln_model"),
                              ("bert", "darknet", "vln"), pstate.optimizers()):
         grads_by_name = {
@@ -274,8 +281,9 @@ def test_carried_train_state_steps_like_optax(both):
             "darknet": lambda: from_jax.darknet_state_dict(
                 {"params": g["darknet"], "batch_stats": both["jstats"]},
                 both["models"][1].cfg.block_dicts()),
-            "vln": lambda: from_jax.et_state_dict({"params": g["vln"]},
-                                                  args.encoder_layers)}[grp]()
+            "vln": lambda: (from_jax.et_state_dict({"params": g["vln"]}, args.encoder_layers)
+                            if family == "et" else
+                            from_jax.lstm_state_dict({"params": g["vln"]}))}[grp]()
         opt.step([torch.as_tensor(np.array(grads_by_name[n])) for n in opt.names])
         for n, p in zip(opt.names, opt.params):
             w = np.asarray(want[key]["state_dict"][n])

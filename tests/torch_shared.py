@@ -4,8 +4,9 @@ The JAX gate checkpoint (the recipe of ``tests/test_render_mode_goldens.py``:
 iters 8, lr 1e-3, exact render, on the fixture dataset, the native resampler
 loaded first) and its export to a reference ``.pt`` by
 ``tools/export_torch_ckpt.py`` take minutes on the CPU, and several files
-validate it. Each artifact here is made once per test session in an on-disk
-cache under the session's temporary root, guarded by a file lock: the first
+validate it; JAX's ``valid()`` of an LSTM checkpoint is made here too.
+Each artifact here is made once per test session in an on-disk cache
+under the session's temporary root, guarded by a file lock: the first
 worker that asks makes it, the others wait for it and read it. Outside
 xdist the cache lives under the session's own temporary directory.
 """
@@ -196,6 +197,62 @@ def jax_twopass_bf16_one_device(tmp_path_factory):
         return metrics_of(jargs.log_dir)
 
     return cached(tmp_path_factory, "jax_valid_twopass_bf16_one_device", make)
+
+
+def recording_successes(mp, module, log):
+    """Inside the ``pytest.MonkeyPatch`` ``mp``, ``module.eval_metrics``
+    (a validation driver's) also appends each nav eval's per-episode success
+    ``{instr_id: success}`` to ``log``."""
+    real = module.eval_metrics
+
+    def eval_metrics(preds, human_att_eval=False):
+        avg, per = real(preds, human_att_eval=human_att_eval)
+        if not human_att_eval:
+            log.append({str(i): bool(s) for i, s in zip(per["instr_id"], per["success"])})
+        return avg, per
+
+    mp.setattr(module, "eval_metrics", eval_metrics)
+
+
+def jax_lstm_valid(tmp_path_factory):
+    """An LSTM agent checkpoint of the JAX package's random init (seed 0, the
+    fixture widths: BERT 2×64, the tiny Darknet, ``HAALSTM`` at ``demb`` 64)
+    exported by ``export_reference_agent(family="lstm")``, and JAX's
+    ``valid()`` of it at the reference numerics (exact render, fp32):
+    ``{root, cfg_path, pt, metrics, successes (per nav eval, {instr_id:
+    success})}``."""
+    root, cfg_path = fixture_dataset(tmp_path_factory)
+
+    def make(out):
+        import jax
+
+        import avdn_tpu.train.loop as jax_loop
+        from avdn_tpu.compat.torch_export import export_reference_agent
+        from avdn_tpu.data import native
+
+        args = make_args(root, str(out / "out"), cfg_path, family="lstm", inference=True,
+                         seed=0, render_twopass=False, bf16=False)
+        cfg = jax_loop.train_config_from_args(args)
+        bert, dk, vln = jax_loop.build_models(args, bf16=False)
+        state = jax.device_get(jax.jit(lambda k: jax_loop.init_state(
+            args, bert, dk, vln, cfg, k))(jax.random.PRNGKey(0)))
+        pt = str(out / "lstm_agent.pt")
+        export_reference_agent(pt, "lstm", dk.cfg.block_dicts(),
+                               {"params": state.bert_params},
+                               {"params": state.darknet_params,
+                                "batch_stats": state.batch_stats},
+                               {"params": state.vln_params}, bert_layers=args.bert_layers)
+        args.resume_file = pt
+        native.available()  # before the bank's decode threads (ROADMAP.md queue 3)
+        successes = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.chdir(out)
+            recording_successes(mp, jax_loop, successes)
+            jax_loop.valid(args)
+        return {"pt": pt, "metrics": metrics_of(args.log_dir), "successes": successes}
+
+    return dict(cached(tmp_path_factory, "jax_lstm_valid", make), root=root,
+                cfg_path=cfg_path)
 
 
 # ------------------------------------------------- shared dropout masks --
