@@ -3,7 +3,10 @@ mirroring src/xview_et/main.py:290-314).
 
 Without ``--inference`` it runs the train driver (``train.loop.train``);
 ``--inference True`` runs the validation driver (``train.loop.valid``). Both
-run on the card unless the caller passes ``device``.
+run on the card unless the caller passes ``device``. With
+``AVDN_NUM_PROCESSES=k`` (and ``AVDN_COORDINATOR``, ``AVDN_PROCESS_ID``) the
+process first joins the run's k processes and takes its card
+(``parallel/runtime.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ def main(argv=None, family: str = "et", device=None):
     family; ``--family`` in ``argv`` overrides it, as in the JAX package.
     ``device`` (default: the card) is where the driver runs; the tests pass
     ``"cpu"``."""
+    from avdn_tpu_torch.parallel.runtime import maybe_init_distributed
+
+    # before anything touches a card: the process picks its card here
+    maybe_init_distributed()
     from avdn_tpu_torch.config import parse_args
     from avdn_tpu_torch.train.loop import train, valid
 

@@ -1,8 +1,8 @@
 """Typed run configuration + reference-compatible CLI.
 
 The port's own copy of ``avdn_tpu/config.py``: the same flags, defaults and
-presets, so both packages accept identical command lines. What the port
-cannot run yet is rejected where the flags are consumed
+presets, so both packages accept identical command lines. A family the port
+does not have is rejected where the flags are consumed
 (``train/loop.py:check_supported``), never silently swapped.
 
 The reference uses a flat ~45-flag argparse namespace with derived paths
@@ -159,8 +159,9 @@ _HELP = {
               "train too, dots remat)",
     "root_dir": "dataset root (expects AVDN/{annotations,train_images})",
     "output_dir": "run directory (ckpts/, logs/, preds/ are created inside)",
-    "world_size": "data-parallel workers: 0 = auto (all chips that divide "
-                  "batch_size); >0 exact (multi-process: the process count)",
+    "world_size": "data-parallel processes, one card each: 0 or 1 = one "
+                  "process; k > 1 must equal the process count "
+                  "(AVDN_NUM_PROCESSES)",
     "iters": "total training iterations",
     "log_every": "epochs per interval (checkpoint + full validation)",
     "eval_first": "run a full validation pass before training",

@@ -1,6 +1,7 @@
 """ANDH annotation loading + normalisation (the port's copy of
-``avdn_tpu/data/annotations.py``: the same seeded shuffle and wrap-around
-refill, so both packages batch the same items in the same order).
+``avdn_tpu/data/annotations.py``: the same seeded shuffle, wrap-around
+refill and per-process shards, so both packages batch the same items in the
+same order).
 
 Replicates the dataset semantics of ``ANDHNavBatch.__init__``
 (src/env.py:85-180): per item the heading angle is int-rounded mod 360, GT
@@ -144,10 +145,25 @@ class ANDHDataset:
     def __init__(self, anno_dir: str, splits: List[str], batch_size: int,
                  seed: int = 0, full_traj: bool = False,
                  shard: Optional[tuple] = None):
-        if shard is not None and shard[1] > 1:
-            raise NotImplementedError(
-                "per-process dataset shards are ROADMAP.md queue 1 item 14")
         self.data = load_annotations(anno_dir, splits, full_traj)
+        self.total_size = len(self.data)
+        #: the instr_ids this process owns (all of them unsharded, None)
+        self.owned_instr_ids = None
+        if shard is not None and shard[1] > 1:
+            # shard (index, count) of a multi-process run: every count-th
+            # item from index, padded by wrap-around to ceil(total / count)
+            # so every process runs the same number of batches (a short one
+            # would leave the others waiting in the step's collectives). The
+            # pad items belong to another shard, so per-process file writers
+            # skip them (owned_instr_ids).
+            idx, count = shard
+            target = -(-self.total_size // count)
+            part = self.data[idx::count]
+            self.owned_instr_ids = {
+                it["map_name"] + "__" + str(it["route_index"]) for it in part}
+            part += [self.data[k % self.total_size]
+                     for k in range(target - len(part))]
+            self.data = part
         self.batch_size = batch_size
         self._rng = random.Random(seed)
         self._rng.shuffle(self.data)

@@ -108,3 +108,13 @@ def make_train_batch(items: List[dict], tokenizer, slot_of: Optional[dict],
         mask_dialog=dev(mask2),
     )
     return batch, meta
+
+
+def batch_to(batch: TrainBatch, device) -> TrainBatch:
+    """``batch`` with every tensor on ``device`` (itself when it is there)."""
+    def move(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).to(device) for f in dataclasses.fields(obj)
+            if f.name != "episode"})
+
+    return dataclasses.replace(move(batch), episode=move(batch.episode))

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from avdn_tpu_torch.parallel import batch
+
 
 def parse_darknet_cfg(text: str) -> List[Dict[str, str]]:
     """Parse darknet cfg text into a list of block dicts (same grammar as the
@@ -248,7 +250,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     (``torch.nn.BatchNorm2d``'s own update would use the unbiased variance
     and weigh the new value by its ``momentum``.) The update is in place,
     outside autograd, so T calls in a row chain the statistics as T steps
-    of a rollout do; inside :func:`frozen_running_stats` it is skipped."""
+    of a rollout do; inside :func:`frozen_running_stats` it is skipped.
+    Inside ``parallel.batch.global_batch`` the statistics are those of the
+    global batch of every rank (:meth:`_global_batch_forward`)."""
 
     def __init__(self, n: int, eps: float, dtype=torch.float32):
         super().__init__(n, eps=eps)
@@ -258,15 +262,34 @@ class BatchNorm2d(nn.BatchNorm2d):
         x = x.float()
         if not self.training:
             return super().forward(x).to(self.dtype)
+        if batch.active():
+            return self._global_batch_forward(x)
         if not _frozen_stats:
-            self._update_running_stats(x)
+            with torch.no_grad():
+                mean = x.mean(dim=(0, 2, 3))
+                self._update_running_stats(
+                    mean, torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0))
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y.to(self.dtype)
 
+    def _global_batch_forward(self, x):
+        """Train mode over the global batch of a data-parallel step: Σx, Σx²
+        and the count all-reduced across the ranks (differentiably), then
+        flax's statistics, the mean and E[x²] − E[x]² clipped at 0."""
+        C = x.shape[1]
+        sums = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                          x.new_full((1,), x.numel() // C)])
+        sums = batch.batch_sum(sums)
+        mean = sums[:C] / sums[-1]
+        var = torch.clamp(sums[C:2 * C] / sums[-1] - mean * mean, min=0.0)
+        if not _frozen_stats:
+            self._update_running_stats(mean.detach(), var.detach())
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return y.to(self.dtype)
+
     @torch.no_grad()
-    def _update_running_stats(self, x):
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    def _update_running_stats(self, mean, var):
         mu = BN_MOMENTUM
         self.running_mean.copy_(mu * self.running_mean + (1.0 - mu) * mean)
         self.running_var.copy_(mu * self.running_var + (1.0 - mu) * var)

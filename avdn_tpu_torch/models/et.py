@@ -39,6 +39,7 @@ from avdn_tpu_torch.models.layers import (
     haa_attention_mask,
     sinusoidal_pos_encoding,
 )
+from avdn_tpu_torch.parallel.batch import batch_max
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +138,7 @@ class HAATransformer(nn.Module):
         the batch-max valid step (ET_haa.py:157-158)."""
         L, T = lang.shape[1], frames.shape[1]
         seq = self.encode(lang, lang_cls, frames, directions, lengths, generator)
-        max_len = lengths.max()
+        max_len = batch_max(lengths.max())  # over the global batch in a DP step
         vis_tok = seq.index_select(1, (L + max_len - 1).reshape(1))[:, 0]
         dir_tok = seq.index_select(1, (L + T + max_len - 1).reshape(1))[:, 0]
         return self.readout(vis_tok, dir_tok, generator)

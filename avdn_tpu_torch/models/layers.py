@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avdn_tpu_torch.ops.saliency import saliency_upsample  # noqa: F401  (re-export)
+from avdn_tpu_torch.parallel.batch import batch_rand
 
 
 def dense(x, weight, bias, dtype, keep_f32: bool = False):
@@ -140,7 +141,9 @@ class Dropout(nn.Module):
     (``where(mask, x / keep, 0)``), the mask drawn from the ``generator``
     the caller passes (required then: no global random state). The identity
     in eval mode or at ``p == 0``; parameter-free, so it never shifts a
-    state-dict name."""
+    state-dict name. ``x``'s leading dimension is item-major: in a
+    data-parallel step the mask is this rank's rows of the global batch's
+    (``parallel.batch.batch_rand``)."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -155,7 +158,7 @@ class Dropout(nn.Module):
         keep = 1.0 - self.p
         if keep == 0.0:
             return torch.zeros_like(x)
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        mask = batch_rand(x.shape, generator, x.device) < keep
         return torch.where(mask, x / keep, 0.0)
 
 

@@ -36,6 +36,7 @@ from avdn_tpu_torch.models.darknet import frozen_running_stats
 from avdn_tpu_torch.models.lstm import heading_radians, init_lstm_state
 from avdn_tpu_torch.ops.losses import step_losses
 from avdn_tpu_torch.ops.saliency import saliency_head_reductions, saliency_upsample
+from avdn_tpu_torch.parallel.batch import batch_all, batch_rand
 from avdn_tpu_torch.sim.dynamics import move_view_corners_batch
 from avdn_tpu_torch.sim.oracle import teacher_action_batch
 from avdn_tpu_torch.sim.render import render_batch
@@ -214,7 +215,7 @@ def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
     model_state = init_model_state
     ys = []
     for t in range(T):
-        any_alive = ~ended.all()
+        any_alive = ~batch_all(ended)
 
         # ---- render current views on device ----
         with torch.no_grad():
@@ -257,7 +258,7 @@ def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
             gt_wp = oracle["waypoint_ratio"]
             gt_alt = oracle["altitude"]
             gt_prog = oracle["progress"]
-            heading_eps = 1e-5 * torch.rand((B,), generator=generator, device=dev)
+            heading_eps = 1e-5 * batch_rand((B,), generator, dev)
             ml = step_losses(pred_wp, pred_alt, pred_prog, gt_wp, gt_alt,
                              gt_prog, heading_eps)
             if cfg.nss_w:

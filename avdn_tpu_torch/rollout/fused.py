@@ -39,6 +39,7 @@ from avdn_tpu_torch.models.et_fast import teacher_onepass
 from avdn_tpu_torch.models.lstm import heading_radians, init_lstm_state
 from avdn_tpu_torch.ops.losses import step_losses
 from avdn_tpu_torch.ops.saliency import saliency_head_reductions, saliency_upsample
+from avdn_tpu_torch.parallel.batch import batch_all, batch_rand
 from avdn_tpu_torch.rollout.engine import (
     _PI_REF,
     RGB_MEAN,
@@ -74,13 +75,13 @@ def teacher_geometry(batch: EpisodeBatch, cfg: RolloutConfig,
     ys = []
     for t in range(T):
         y = dict(corners_pre=corners, dirs_pre=directions, ended_pre=ended,
-                 any_alive=~ended.all())
+                 any_alive=~batch_all(ended))
         if cfg.compute_losses:
             oracle = teacher_action_batch(corners, ended, batch.gt_corners,
                                           batch.gt_len, True)
             gt_wp, gt_alt, gt_prog = (oracle["waypoint_ratio"], oracle["altitude"],
                                       oracle["progress"])
-            y["heading_eps"] = 1e-5 * torch.rand((B,), generator=generator, device=dev)
+            y["heading_eps"] = 1e-5 * batch_rand((B,), generator, dev)
         else:
             # without losses there are no oracle targets: only t == T-1 stops
             gt_wp = torch.zeros((B, 2), dtype=torch.float32, device=dev)

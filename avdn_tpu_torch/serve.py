@@ -5,8 +5,8 @@ agent checkpoint in ``--family``'s layout), then map ANDH-format annotation
 items to predicted trajectories with a student-forced rollout
 (``compute_losses=False`` — no ground truth required). Batches pad to a fixed serving batch size.
 
-    args = parse_args(["--resume_file", "agent.pt", "--root_dir", dataset])
-    nav = Navigator(args)
+    nav = Navigator(parse_args(["--resume_file", "agent.pt", "--root_dir", dataset]))
+    nav = Navigator.from_args(["--resume_file", "agent.pt", "--root_dir", dataset])
     preds = nav.navigate(items)              # {instr_id: {path_corners, actions, progress}}
 
 It runs on the card unless ``device="cpu"`` is passed; without a card it
@@ -17,6 +17,15 @@ with ``--render_crop 0``, 512 px without them), bf16 towers on the card
 False`` restore the reference numerics. The constructor sets
 ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` to False.
+
+``nav.timers`` (a ``PhaseTimer``) accumulates the wall of each phase of
+every batch served: ``map_bank`` (map decode into the bank), ``batch_build``
+(tokenisation and the batch's host tensors), ``device_place`` (their
+upload), ``dispatch`` (enqueueing the rollout: on the card the host returns
+once its kernels are queued), ``device_wait`` (waiting for the rollout's
+result and copying it to the host) and ``assemble`` (the prediction
+records). In a multi-process run (``AVDN_NUM_PROCESSES``) each process
+serves on its own card.
 """
 
 from __future__ import annotations
@@ -27,13 +36,14 @@ import numpy as np
 import torch
 
 from avdn_tpu_torch.compat.from_jax import load_agent_weights, load_reference_agent
-from avdn_tpu_torch.config import Args
-from avdn_tpu_torch.data.batcher import make_train_batch
+from avdn_tpu_torch.config import Args, parse_args
+from avdn_tpu_torch.data.batcher import batch_to, make_train_batch
 from avdn_tpu_torch.data.maps import DeviceMapBank
 from avdn_tpu_torch.data.prefetch import Prefetcher
 from avdn_tpu_torch.data.tokenizer import WordPieceTokenizer
 from avdn_tpu_torch.device import resolve_device, use_fp32_numerics
 from avdn_tpu_torch.metrics.nav import assemble_trajectories
+from avdn_tpu_torch.parallel.runtime import setup_runtime
 from avdn_tpu_torch.train.loop import (
     batcher_config,
     build_models,
@@ -45,6 +55,7 @@ from avdn_tpu_torch.train.loop import (
     resolve_render_crop,
 )
 from avdn_tpu_torch.train.step import make_eval_rollout
+from avdn_tpu_torch.utils.logging import PhaseTimer
 
 
 class Navigator:
@@ -60,6 +71,7 @@ class Navigator:
 
     def __init__(self, args: Args, serve_batch: Optional[int] = None,
                  device=None, map_loader=None):
+        setup_runtime(args)  # joins the processes and picks the card
         self.device = resolve_device(device)
         check_supported(args, self.device)
         use_fp32_numerics()
@@ -83,6 +95,14 @@ class Navigator:
                                           self.vln, teacher=False,
                                           compute_losses=False)
         self._gen = torch.Generator(self.device).manual_seed(args.seed)
+        self.timers = PhaseTimer()
+
+    @classmethod
+    def from_args(cls, argv: Optional[List[str]] = None, family: str = "et",
+                  **kw) -> "Navigator":
+        """A Navigator over ``parse_args(argv, family)``; ``kw`` go to the
+        constructor (``serve_batch``, ``device``, ``map_loader``)."""
+        return cls(parse_args(argv, family=family), **kw)
 
     @staticmethod
     def _normalize_item(item: dict) -> dict:
@@ -111,21 +131,28 @@ class Navigator:
         chunk = list(chunk)
         while len(chunk) < self.serve_batch:  # pad; dropped via meta["valid"]
             chunk = chunk + [dict(chunk[0], _pad=True)]
-        bank, slot_of = self.bank.prepare(chunk)
-        batch, meta = make_train_batch(chunk, self.tokenizer, slot_of, self.bcfg,
-                                       device=self.device)
+        with self.timers("map_bank"):
+            bank, slot_of = self.bank.prepare(chunk)
+        with self.timers("batch_build"):
+            batch, meta = make_train_batch(chunk, self.tokenizer, slot_of, self.bcfg)
+        with self.timers("device_place"):
+            batch = batch_to(batch, self.device)
         return bank, batch, meta
 
     def launch(self, prepared):
         """Enqueue the rollout for a ``prepare``d chunk; on the card this
         returns once the work is queued."""
         bank, batch, meta = prepared
-        return self._rollout(bank, batch, self._gen), meta
+        with self.timers("dispatch"):
+            return self._rollout(bank, batch, self._gen), meta
 
     def drain(self, pending) -> Dict[str, dict]:
         """Wait for a ``launch``ed rollout and assemble its predictions."""
         out, meta = pending
-        return assemble_trajectories(out.cpu(), meta)
+        with self.timers("device_wait"):
+            out = out.cpu()  # waits for the rollout on the card
+        with self.timers("assemble"):
+            return assemble_trajectories(out, meta)
 
     def navigate(self, items: List[dict]) -> Dict[str, dict]:
         """Predicted trajectories for ANDH items, keyed by instr_id. Each

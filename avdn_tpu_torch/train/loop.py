@@ -56,6 +56,8 @@ from avdn_tpu_torch.models.bert import BertConfig, BertLanguageEncoder
 from avdn_tpu_torch.models.darknet import Darknet, DarknetConfig
 from avdn_tpu_torch.models.et import ETConfig, HAATransformer
 from avdn_tpu_torch.models.lstm import HAALSTM, LSTMConfig
+from avdn_tpu_torch.parallel.collectives import merge_prediction_dicts
+from avdn_tpu_torch.parallel.runtime import ParallelRuntime, setup_runtime
 from avdn_tpu_torch.sim.warp2pass import auto_render_crop
 from avdn_tpu_torch.train import checkpoints as ckpt
 from avdn_tpu_torch.train.step import (
@@ -89,13 +91,8 @@ def train_bf16(args: Args) -> bool:
 
 
 def check_supported(args: Args, device: torch.device) -> None:
-    """Raise ``ValueError`` for an unknown ``--family``, and
-    ``NotImplementedError`` for every flag the port cannot run yet, naming
-    the ROADMAP.md item that brings it."""
+    """Raise ``ValueError`` for an unknown ``--family``."""
     check_family(args.family)
-    if args.world_size > 1 or int(os.environ.get("AVDN_NUM_PROCESSES", "0") or 0) > 1:
-        raise NotImplementedError(
-            "multi-process and data-parallel runs are ROADMAP.md queue 1 item 14")
 
 
 def build_models(args: Args, device: torch.device, bf16: bool = False):
@@ -287,13 +284,19 @@ def batcher_config(args: Args) -> BatcherConfig:
 # ------------------------------------------------------ validation driver --
 
 
-def build_dataset(args: Args):
+def _shard(runtime: ParallelRuntime):
+    """This process's dataset shard, ``(index, count)``, or None."""
+    return (runtime.process_index, runtime.process_count) if runtime.multiprocess else None
+
+
+def build_dataset(args: Args, runtime: ParallelRuntime):
     """The validation envs, ``{name: ANDHDataset}`` (val_seen, val_unseen,
     and test_unseen under ``--submit``), each with the seeded shuffle of
-    ``--seed`` (``train`` builds the train env the same way)."""
+    ``--seed`` and, in a multi-process run, this process's shard (``train``
+    builds the train env the same way, its shuffle seeded per process)."""
     names = ["val_seen", "val_unseen"] + (["test_unseen"] if args.submit else [])
-    return {name: ANDHDataset(args.val_anno_dir, [name], args.batch_size,
-                              seed=args.seed, full_traj=args.train_val_on_full)
+    return {name: ANDHDataset(args.val_anno_dir, [name], args.batch_size, seed=args.seed,
+                              full_traj=args.train_val_on_full, shard=_shard(runtime))
             for name in names}
 
 
@@ -328,7 +331,7 @@ def profile_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def _eval_env(args, env, eval_fn, tokenizer, bank, bcfg, device,
+def _eval_env(args, env, eval_fn, tokenizer, bank, bcfg, device, runtime,
               on_batch=None, profile_dir=None):
     """One full pass over a val env; returns preds keyed by instr_id.
     Wrap-around duplicate items overwrite by key (reference agent.test,
@@ -336,7 +339,9 @@ def _eval_env(args, env, eval_fn, tokenizer, bank, bcfg, device,
     outputs on the host (debug-image dumps). Every batch gets a fresh
     generator seeded with ``--seed`` (the JAX package's one fixed key): the
     only random draw left in eval is the unused loss's heading jitter.
-    ``profile_dir`` traces the FIRST batch only."""
+    ``profile_dir`` traces the FIRST batch only. In a multi-process run each
+    process evaluates its shard alone and the predictions are unioned over
+    the processes, so every process returns the same dict."""
     preds = {}
 
     def _prepare(items):
@@ -359,12 +364,17 @@ def _eval_env(args, env, eval_fn, tokenizer, bank, bcfg, device,
         preds.update(assemble_trajectories(out, meta))
         if on_batch is not None:
             on_batch(out, meta)
-    return preds
+    return merge_prediction_dicts(preds) if runtime.multiprocess else preds
 
 
 def _write_debug_images(args, env, preds, env_name):
-    """Inference-mode trajectory overlays (agent.py:776-879 flow)."""
-    items_by_id = {it["map_name"] + "__" + it["route_index"]: it for it in env.data}
+    """Inference-mode trajectory overlays (agent.py:776-879 flow), of the
+    items this process owns (a shard's wrap-around pad items are another
+    process's to write)."""
+    owned = env.owned_instr_ids
+    items_by_id = {it["map_name"] + "__" + it["route_index"]: it for it in env.data
+                   if owned is None
+                   or it["map_name"] + "__" + str(it["route_index"]) in owned}
     host_maps = {}
     for it in items_by_id.values():
         nm = it["map_name"]
@@ -399,7 +409,7 @@ def _write_saliency_debug(args, env_name, out, meta):
 
 
 def run_validation(args, val_envs, eval_student, eval_teacher, tokenizer, bank,
-                   bcfg, writer, step: int, device, eval_student_test=None,
+                   bcfg, writer, step: int, device, runtime, eval_student_test=None,
                    eval_teacher_debug=None, profile_dir=None, timers=None):
     """Student nav eval + teacher-forced HA eval over all val envs
     (main.py:188-239). Returns {env_name: avg_metrics}.
@@ -407,7 +417,10 @@ def run_validation(args, val_envs, eval_student, eval_teacher, tokenizer, bank,
     With ``eval_teacher_debug`` (a ``collect_debug`` rollout) in inference
     mode, per-step saliency heatmaps are written to preds/debug_images
     (agent.py:694-706). ``timers`` (a ``PhaseTimer``) times the nav and HA
-    evals and the debug images (the heatmaps inside the HA eval's time)."""
+    evals and the debug images (the heatmaps inside the HA eval's time).
+    In a multi-process run every process evaluates its shards and computes
+    the same metrics from the merged predictions; the Eval.ai file is
+    process 0's to write."""
     timers = timers or PhaseTimer()
     results = {}
     loss_str = f"iter {step}"
@@ -416,11 +429,12 @@ def run_validation(args, val_envs, eval_student, eval_teacher, tokenizer, bank,
         if "test" in env_name and eval_student_test is not None:
             fn = eval_student_test
         with timers("nav_eval"):
-            preds = _eval_env(args, env, fn, tokenizer, bank, bcfg, device,
+            preds = _eval_env(args, env, fn, tokenizer, bank, bcfg, device, runtime,
                               profile_dir=profile_dir if ei == 0 else None)
         if "test_unseen" in env_name:
-            np.save("./output_test_result.npy", preds, allow_pickle=True)
-            print("inference_result on test is generated.")
+            if runtime.is_main:
+                np.save("./output_test_result.npy", preds, allow_pickle=True)
+                print("inference_result on test is generated.")
             continue
         if args.inference:
             with timers("debug_images"):
@@ -443,7 +457,7 @@ def run_validation(args, val_envs, eval_student, eval_teacher, tokenizer, bank,
 
         with timers("ha_eval"):
             preds = _eval_env(args, env, teacher_fn, tokenizer, bank, bcfg,
-                              device, on_batch=on_batch)
+                              device, runtime, on_batch=on_batch)
         ha_avg, _ = eval_metrics(preds, human_att_eval=True)
         results[env_name + "_human_att"] = ha_avg
         loss_str += f", {env_name}_human_att " + "".join(
@@ -451,6 +465,18 @@ def run_validation(args, val_envs, eval_student, eval_teacher, tokenizer, bank,
         writer.scalars(step, {f"{k}/{env_name}_ha": v for k, v in ha_avg.items()})
     writer.text(loss_str)
     return results
+
+
+def _log_dir(args: Args, runtime: ParallelRuntime) -> str:
+    """``logs/`` for process 0, ``logs/proc{i}/`` for the others."""
+    if runtime.is_main:
+        return args.log_dir
+    return os.path.join(args.log_dir, f"proc{runtime.process_index}")
+
+
+def _describe_device(device, runtime: ParallelRuntime) -> str:
+    name = f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""
+    return f"device: {device}{name}; {runtime.describe()}"
 
 
 def _timed_loader(loader, timers):
@@ -473,11 +499,16 @@ def valid(args: Args, device=None):
     under ``preds/debug_images``, and with ``--submit`` the Eval.ai
     ``output_test_result.npy``. ``--profile_dir`` traces the first eval
     batch. Returns ``({env_name: avg_metrics}, PhaseTimer)``; the timer
-    holds the map loading, nav-eval, HA-eval and debug-image walls."""
+    holds the map loading, nav-eval, HA-eval and debug-image walls.
+
+    In a multi-process run (``parallel/runtime.py``) each process evaluates
+    its shard of every split on its own card, the predictions are merged,
+    and process 0 writes ``logs/``, the others ``logs/proc{i}/``."""
+    runtime = setup_runtime(args)  # joins the processes and picks the card
     device = resolve_device(device)
     check_supported(args, device)
     resolve_inference_checkpoint(args)
-    set_random_seed(args.seed)
+    set_random_seed(args.seed + runtime.process_index)
     _check_dataset(args, ["val_seen", "val_unseen"])
     use_fp32_numerics()
     args = resolve_render_crop(args)
@@ -487,19 +518,19 @@ def valid(args: Args, device=None):
     if args.resume_file:
         load_agent_weights(models, load_reference_agent(args.resume_file, args.family))
         print(f"Imported reference checkpoint {args.resume_file}")
+    runtime.assert_replicas_identical(models, "weights")
     tokenizer = WordPieceTokenizer.load(args.bert_vocab_file)
     bcfg = batcher_config(args)
     timers = PhaseTimer()
     bank = DeviceMapBank(args.val_dataset_dir, (args.map_bank_px, args.map_bank_px),
                          n_slots=args.map_bank_slots, device=device)
     bank.loader = _timed_loader(bank.loader, timers)
-    writer = MetricWriter(args.log_dir, "valid.txt")
-    writer.text(f"device: {device}"
-                + (f" ({torch.cuda.get_device_name(device)})"
-                   if device.type == "cuda" else "") + "; " + describe_eval_mode(cfg, models))
-    with open(os.path.join(args.log_dir, "validation_args.json"), "w") as f:
-        json.dump(vars(args), f, indent=4, default=str)
-    val_envs = build_dataset(args)
+    writer = MetricWriter(_log_dir(args, runtime), "valid.txt")
+    writer.text(_describe_device(device, runtime) + "; " + describe_eval_mode(cfg, models))
+    if runtime.is_main:
+        with open(os.path.join(args.log_dir, "validation_args.json"), "w") as f:
+            json.dump(vars(args), f, indent=4, default=str)
+    val_envs = build_dataset(args, runtime)
     bert, darknet, vln = models
     eval_student = make_eval_rollout(cfg, bert, darknet, vln, teacher=False)
     eval_teacher = make_eval_rollout(cfg, bert, darknet, vln, teacher=True,
@@ -514,7 +545,7 @@ def valid(args: Args, device=None):
         if args.submit else None)
     t0 = time.perf_counter()
     results = run_validation(args, val_envs, eval_student, eval_teacher, tokenizer,
-                             bank, bcfg, writer, 0, device, eval_student_test,
+                             bank, bcfg, writer, 0, device, runtime, eval_student_test,
                              eval_teacher_debug=eval_teacher_debug,
                              profile_dir=args.profile_dir or None, timers=timers)
     writer.text(f"validation wall {time.perf_counter() - t0:.3f} s; phase timers: "
@@ -590,10 +621,20 @@ def train(args: Args, device=None):
     traces the second train step. A ``torch.Generator`` seeded with
     ``--seed`` + 1 on the device draws the dropout masks and the loss's
     heading jitter. Returns ``(TrainState, [per-step metrics as floats])``.
+
+    In a multi-process run (``parallel/runtime.py``) each process trains on
+    its shard of the train split, one slice of a global batch of
+    process-count × ``--batch_size`` items (``make_train_step``'s
+    ``group``); the replicas are checked identical after the init and the
+    resume, the map banks grow together (so ``--prefetch`` is off), a
+    SIGTERM to any process stops all of them at the same step, process 0
+    alone writes the checkpoints (synchronously), and the validation merges
+    the processes' predictions.
     """
+    runtime = setup_runtime(args)  # joins the processes and picks the card
     device = resolve_device(device)
     check_supported(args, device)
-    set_random_seed(args.seed)
+    set_random_seed(args.seed + runtime.process_index)
     _check_dataset(args, ["train", "val_seen", "val_unseen"])
     use_fp32_numerics()
     args = resolve_render_crop(args)
@@ -601,20 +642,21 @@ def train(args: Args, device=None):
     models = build_models(args, device, bf16=train_bf16(args))
     init_state(models, torch.Generator().manual_seed(args.seed), args)
     state = create_train_state(cfg, *models)
-    train_step = make_train_step(cfg, *models)
+    train_step = make_train_step(cfg, *models, group=runtime.group)
     tokenizer = WordPieceTokenizer.load(args.bert_vocab_file)
     bcfg = batcher_config(args)
     bank = DeviceMapBank(args.train_dataset_dir, (args.map_bank_px, args.map_bank_px),
                          n_slots=args.map_bank_slots, device=device)
-    writer = MetricWriter(args.log_dir, "train.txt")
-    writer.text(f"device: {device}"
-                + (f" ({torch.cuda.get_device_name(device)})"
-                   if device.type == "cuda" else ""))
-    with open(os.path.join(args.log_dir, "training_args.json"), "w") as f:
-        json.dump(vars(args), f, indent=4, default=str)
+    writer = MetricWriter(_log_dir(args, runtime), "train.txt")
+    writer.text(_describe_device(device, runtime))
+    if runtime.is_main:
+        with open(os.path.join(args.log_dir, "training_args.json"), "w") as f:
+            json.dump(vars(args), f, indent=4, default=str)
+    # the reference seeds each rank's shuffle apart (main.py:304)
     train_env = ANDHDataset(args.train_anno_dir, ["train"], args.batch_size,
-                            seed=args.seed, full_traj=args.train_val_on_full)
-    val_envs = build_dataset(args)
+                            seed=args.seed + runtime.process_index,
+                            full_traj=args.train_val_on_full, shard=_shard(runtime))
+    val_envs = build_dataset(args, runtime)
 
     # validation runs the eval config on the same weights; eval towers of
     # another dtype than training's (bf16 eval, the default on the card,
@@ -635,8 +677,8 @@ def train(args: Args, device=None):
             for em, m in zip(emodels, models):
                 em.load_state_dict(m.state_dict())
         return run_validation(args, val_envs, eval_student, eval_teacher, tokenizer,
-                              bank, bcfg, writer, step, device, eval_student_test,
-                              timers=timers)
+                              bank, bcfg, writer, step, device, runtime,
+                              eval_student_test, timers=timers)
 
     if args.resume_file == "latest":
         args.resume_file = _find_latest_checkpoint(args.ckpt_dir)
@@ -647,6 +689,7 @@ def train(args: Args, device=None):
         ckpt.load_checkpoint(args.resume_file, state, optimizer=args.resume_optimizer)
         writer.text(f"\nLOAD the model from {args.resume_file}, iteration {state.step}")
     start_iter = state.step
+    runtime.assert_replicas_identical(state)
 
     timers = PhaseTimer()
     if args.eval_first:
@@ -656,12 +699,17 @@ def train(args: Args, device=None):
         """Host batch assembly, on the prefetch thread under ``--prefetch``."""
         with timers("map_bank"):
             bank_arr, slot_of = bank.prepare(items)
+            if runtime.multiprocess:  # every process's bank of one shape
+                runtime.sync_bank_growth(bank)
+                bank_arr = bank.array
         with timers("batch_build"):
             batch, _ = make_train_batch(items, tokenizer, slot_of, bcfg, device=device)
         return bank_arr, batch
 
     def _epoch_batches():
-        if args.prefetch:
+        # the bank-growth sync is a collective: it stays on the main thread,
+        # where it cannot interleave with the train step's collectives
+        if args.prefetch and not runtime.multiprocess:
             return Prefetcher(train_env, _prepare, depth=2)
         return (_prepare(items) for items in train_env)
 
@@ -688,7 +736,9 @@ def train(args: Args, device=None):
                     else:
                         m = train_step(state, bank_arr, batch, generator)
                 metrics.append(m)
-                if guard is not None and guard.triggered:
+                # a collective in a multi-process run: every process stops
+                # at the same step
+                if guard is not None and runtime.any_flag(guard.triggered):
                     preempted = True
                     break
             if preempted:
@@ -696,13 +746,15 @@ def train(args: Args, device=None):
         metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
         history += metrics
         if preempted:
-            ckpt.save_checkpoint(args.ckpt_dir, f"latest_dict_{state.step}", state)
+            if runtime.is_main:
+                ckpt.save_checkpoint(args.ckpt_dir, f"latest_dict_{state.step}", state)
             ckpt.wait_for_saves()
             writer.text(f"\npreemption signal — saved latest_dict_{state.step}, "
                         "exiting cleanly (relaunch with --resume_file latest)")
             break
         il_loss = float(np.mean([m["loss"] for m in metrics]))
-        eps = len(metrics) * args.batch_size / max(time.time() - interval_t0, 1e-9)
+        eps = (len(metrics) * args.batch_size * runtime.process_count
+               / max(time.time() - interval_t0, 1e-9))
         writer.scalars(it, {
             "loss/IL_loss": il_loss,
             "grad_norm/vln": float(np.mean([m["grad_norm_vln"] for m in metrics])),
@@ -710,20 +762,25 @@ def train(args: Args, device=None):
             "throughput/train_eps": eps})
         writer.text(f"\nIL_loss {il_loss:.4f}  ({eps:.1f} episodes/s)")
         writer.text(f"phase timers: {timers.summary()}")
-        with timers("checkpoint"):
-            ckpt.save_checkpoint(args.ckpt_dir, f"latest_dict_{it}", state,
-                                 asynchronous=args.async_ckpt)
-            if args.ckpt_keep > 0:
-                ckpt.wait_for_saves()  # never prune an in-flight write
-                _prune_checkpoints(args.ckpt_dir, args.ckpt_keep)
+        # checkpoints are process 0's to write, synchronously in a
+        # multi-process run (no write may outlive the process group)
+        do_async = args.async_ckpt and not runtime.multiprocess
+        if runtime.is_main:
+            with timers("checkpoint"):
+                ckpt.save_checkpoint(args.ckpt_dir, f"latest_dict_{it}", state,
+                                     asynchronous=do_async)
+                if args.ckpt_keep > 0:
+                    ckpt.wait_for_saves()  # never prune an in-flight write
+                    _prune_checkpoints(args.ckpt_dir, args.ckpt_keep)
         results = validate(it)
         if "val_unseen" in results:
             spl = results["val_unseen"].get("spl", 0.0)
             if spl >= best_spl:
                 best_spl, best_line = spl, f"Iter {it} spl {spl:.2f}"
-                with timers("checkpoint"):
-                    ckpt.save_checkpoint(args.ckpt_dir, "best_val_unseen", state,
-                                         asynchronous=args.async_ckpt)
+                if runtime.is_main:
+                    with timers("checkpoint"):
+                        ckpt.save_checkpoint(args.ckpt_dir, "best_val_unseen", state,
+                                             asynchronous=do_async)
         writer.text(f"{time.time() - start:.1f}s iter {it} BEST: {best_line}")
         # reset after the checkpoint and validation: the next interval's
         # episodes/s covers training only

@@ -20,20 +20,26 @@ Training (``make_train_step``):
 * dropout from the step's ``torch.Generator`` and BatchNorm on batch
   statistics, the simulator feedback detached (``rollout/engine.py``);
 * ``--grad_accum K``: K micro-batches, each loss divided by the full B,
-  gradients summed, the BatchNorm running statistics chained.
+  gradients summed, the BatchNorm running statistics chained;
+* with a process group (k processes), each rank's batch is its slice of a
+  global batch: the batch reductions inside the loss span the ranks
+  (``parallel/batch.py``) and the gradients are averaged before the clip.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from avdn_tpu_torch.config import check_family
 from avdn_tpu_torch.device import use_fp32_numerics
 from avdn_tpu_torch.models.darknet import Darknet, fold_darknet_params, output_channels
 from avdn_tpu_torch.models.darknet_quant import QuantDarknet, quantize_darknet_params
+from avdn_tpu_torch.parallel.batch import global_batch
 from avdn_tpu_torch.rollout.engine import (
     RGB_STD,
     EpisodeBatch,
@@ -253,13 +259,44 @@ def make_loss_fn(cfg: TrainConfig, bert_model, darknet_model, vln_model) -> Call
     return loss_fn
 
 
-def make_train_step(cfg: TrainConfig, bert_model, darknet_model, vln_model) -> Callable:
+def _mean_over_ranks(tensors, group, bucket_numel: int = 1 << 25) -> None:
+    """Average ``tensors`` in place over the ranks of ``group``: all-reduce
+    SUM of flat float32 buckets of at most ``bucket_numel`` elements, then
+    divide by the world size (every rank gets the same bytes)."""
+    world = dist.get_world_size(group)
+    start = 0
+    while start < len(tensors):
+        stop, n = start, 0
+        while stop < len(tensors) and (
+                stop == start or n + tensors[stop].numel() <= bucket_numel):
+            n += tensors[stop].numel()
+            stop += 1
+        bucket = tensors[start:stop]
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat /= world
+        torch._foreach_copy_(bucket, [piece.view_as(t) for piece, t in zip(
+            flat.split([t.numel() for t in bucket]), bucket)])
+        start = stop
+
+
+def make_train_step(cfg: TrainConfig, bert_model, darknet_model, vln_model,
+                    group=None) -> Callable:
     """Build ``train_step(state, map_bank, batch, generator) -> metrics``:
     one optimizer step of ``state`` (in place; ``state.step`` += 1) on
     ``batch``. ``generator`` (on the batch's device) draws the dropout masks
     and the loss's heading jitter. Returns ``{"loss", "grad_norm_vln",
     "grad_norm_bert"}`` as 0-d tensors on the device (no host sync); the
-    grad norms are taken before the clip."""
+    grad norms are taken before the clip.
+
+    With ``group`` (a ``torch.distributed`` process group) each rank's
+    ``batch`` is its slice of the global batch, as in the JAX package's
+    multi-process step: the batch reductions inside the loss are global
+    (``parallel.batch.global_batch``), each rank's loss is divided by its
+    own B, and the gradients and the loss are then averaged over the ranks,
+    before the clip and the optimizers. Given the same generator state on
+    every rank, the ranks stay bit-identical and equal one process at the
+    global batch. Without it the step issues no collective."""
     check_train_supported(cfg)
     use_fp32_numerics()
     loss_fn = make_loss_fn(cfg, bert_model, darknet_model, vln_model)
@@ -274,15 +311,19 @@ def make_train_step(cfg: TrainConfig, bert_model, darknet_model, vln_model) -> C
         if full_B % K != 0:
             raise ValueError(f"--grad_accum {K} must evenly divide batch_size {full_B}")
         loss = torch.zeros((), device=batch.ids_instr.device)
-        for k in range(K):
-            # each micro loss over the FULL batch size: the summed grads are
-            # the full batch's; BatchNorm's running statistics chain in order
-            mb = batch if K == 1 else _micro_batch(batch, k, K)
-            micro = loss_fn(mb, map_bank, generator, full_B)
-            micro.backward()
-            loss = loss + micro.detach()
+        with global_batch(group) if group is not None else contextlib.nullcontext():
+            for k in range(K):
+                # each micro loss over the FULL batch size: the summed grads
+                # are the full batch's; BatchNorm's running statistics chain
+                # in order
+                mb = batch if K == 1 else _micro_batch(batch, k, K)
+                micro = loss_fn(mb, map_bank, generator, full_B)
+                micro.backward()
+                loss = loss + micro.detach()
         grads = [[torch.zeros_like(p) if p.grad is None else p.grad
                   for p in opt.params] for opt in state.optimizers()]
+        if group is not None:  # the mean gradient (and loss) over the ranks
+            _mean_over_ranks([g for gs in grads for g in gs] + [loss.reshape(1)], group)
         norms = [global_norm(g) for g in grads]
         for opt, g, norm in zip(state.optimizers(), grads, norms):
             opt.step(g, norm)

@@ -28,6 +28,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
              teacher HA eval (one launch per batch, N = T·B = 80) and the
              step-by-step HA eval (T launches per batch), the last two held
              against each other.
+4b. serve_http — phase 4's Navigator behind the port's HTTP front-end
+             (``serve_http.make_server`` on 127.0.0.1): 6 concurrent
+             clients of 4 items coalesced into batches of at most 8, one
+             request of 20 items split into 8 + 8 + 4 and equal to
+             ``navigate()``, ``/healthz``, a 400 and a 413, no saliency
+             launch; then ``tools/bench_serving_torch.py``'s ``bench`` (8
+             clients × 32 requests × 2 items, 256 requests): its JSON line
+             with eps/s, p50/p90/p99 and the Navigator's wall by phase.
 5. valid   — the port's validation driver, ``valid()``, at full width on an
              ANDH-format dataset written here (val_seen / val_unseen JSON,
              the maps as .tif files), the random weights through
@@ -62,6 +70,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
              and on the CPU: loss and grad norms within 1e-4 in fp32, and
              within 2e-2 in the production recipe's bf16 (teacher feedback
              through the step loop, fp32 render weights on both sides).
+6c'. dp    — data parallelism on the one card: the real train step in a
+             world of one process over NCCL (full width, B = 8, fp32, exact)
+             against the step with no process group (bit-equal, or the gap
+             and its reason, within 1e-5 / 1e-3); then ``cli.train_et`` in two
+             processes over gloo (NCCL refuses two ranks on one device),
+             B = 4 a rank on 16 train items: 2 steps, a checkpoint and a
+             validation, ``--resume_file latest`` and 2 more; both exit 0,
+             rank 0 alone writes checkpoints, the replicas (weights and Adam
+             moments) bit-identical, the metric records equal, each step's
+             saliency launches 10 at N = 4 and 1 at N = 40 forward and 10 at
+             N = 4 backward on each rank (step walls and peak memory per
+             rank); one step at dropout 0 against one process at B = 8, the
+             loss within 1e-4 relative and per group (BERT, Darknet, VLN)
+             the gradient difference's norm within 1e-4 / 1e-1 / 1e-4 of the
+             gradient's norm, bars that the control (BatchNorm on each
+             rank's own statistics) must fail.
 6d. lstm   — the HAA-LSTM family (``--family lstm``: BERT-base, Darknet-53,
              ``HAALSTM`` hidden 768, T = 10) from a random init written as a
              reference LSTM-layout .pt: serving (no saliency launch), the
@@ -93,6 +117,7 @@ beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -1887,6 +1912,613 @@ def _lstm_nss_step(card, data, device, extra_args=()):
     return bwd
 
 
+# ------------------------------------------------------------ serve_http --
+
+
+def _http(method, url, obj=None, timeout=600):
+    """``(status, JSON body)`` of one request to the port's HTTP server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _same_records(recs, preds, items, where):
+    """The HTTP records equal ``preds`` (a ``navigate()`` result) item for
+    item, in request order, exactly."""
+    import numpy as np
+
+    if len(recs) != len(items):
+        fail(f"{where}: {len(recs)} records for {len(items)} items")
+    for it, rec in zip(items, recs):
+        key = it["map_name"] + "__" + it["route_index"]
+        want = preds[key]
+        if rec["instr_id"] != key:
+            fail(f"{where}: record {rec['instr_id']} where {key} was asked")
+        for field in ("path_corners", "actions", "progress"):
+            got_flat = np.concatenate([np.ravel(np.asarray(x, np.float64)) for x in
+                                       _flatten(rec[field])])
+            want_flat = np.concatenate([np.ravel(np.asarray(x, np.float64)) for x in
+                                        _flatten(want[field])])
+            if got_flat.shape != want_flat.shape or not np.array_equal(got_flat, want_flat):
+                fail(f"{where}: {key} {field} differs from navigate()'s")
+
+
+def _flatten(x):
+    if isinstance(x, (list, tuple)):
+        return [y for v in x for y in _flatten(v)]
+    return [x]
+
+
+BENCH_CLIENTS, BENCH_REQUESTS, BENCH_ITEMS = 8, 32, 2  # phase serve_http's bench
+
+
+def phase_serve_http(card, nav):
+    """The port's HTTP front-end (``avdn_tpu_torch.serve_http.make_server``
+    on 127.0.0.1) over phase 4's full-width Navigator (fp32, the exact
+    render, ``serve_batch`` 8): ``/healthz``; 6 concurrent clients of 4
+    items, coalesced into batches of at most 8; one request of 20 items,
+    split into batches of 8, 8 and 4 and answered once, in order, equal to
+    ``nav.navigate()`` of the same items; a 400 and a 413; no saliency
+    launch. Then ``tools/bench_serving_torch.py``'s ``bench`` (8 clients ×
+    32 requests × 2 items: 256 requests, so p99 is the 3rd-largest latency,
+    not the largest): its JSON line with eps/s, p50/p99 and the Navigator's
+    wall by phase. Returns the launches (0)."""
+    import importlib.util
+    import threading
+
+    from avdn_tpu_torch.ops.saliency import saliency_stats
+    from avdn_tpu_torch.serve_http import make_server
+
+    raw = make_items()
+    sizes = []
+    real_prepare = nav.prepare
+
+    def prepare(chunk):
+        sizes.append(len(chunk))
+        return real_prepare(chunk)
+
+    nav.prepare = prepare
+    saliency_stats.launches = 0
+    server = make_server(nav, host="127.0.0.1", port=0, max_wait_ms=200.0, max_items=64)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+    try:
+        code, body = _http("GET", base + "/healthz")
+        if code != 200 or body.get("serve_batch") != SERVE_BATCH:
+            fail(f"[serve_http] /healthz: {code} {body}")
+        _http("POST", base + "/navigate", {"items": raw[:SERVE_BATCH]})  # warm-up
+        # 6 concurrent clients of 4 items
+        del sizes[:]
+        replies = [None] * 6
+        t0 = time.perf_counter()
+
+        def client(c):
+            its = [dict(it, route_index=f"c{c}k{k}_1")
+                   for k, it in enumerate(raw[4 * c: 4 * c + 4])]
+            replies[c] = (its, _http("POST", base + "/navigate", {"items": its}))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        for its, (code, body) in replies:
+            ids = [r["instr_id"] for r in body.get("predictions", [])]
+            if code != 200 or ids != [it["map_name"] + "__" + it["route_index"]
+                                      for it in its]:
+                fail(f"[serve_http] a concurrent client got {code}: {ids}")
+        coalesced = list(sizes)
+        if sum(coalesced) != 24 or max(coalesced) > SERVE_BATCH:
+            fail(f"[serve_http] 6 clients x 4 items ran as batches of {coalesced}")
+        log(f"[serve_http] 6 concurrent clients x 4 items: 24 predictions in "
+            f"{wall:.3f} s, coalesced into batches of {coalesced} (at most "
+            f"{SERVE_BATCH}) | {card}")
+        # one request of 20 items: split into 8, 8 and 4
+        big = [dict(raw[k], route_index=f"big{k}_1") for k in range(20)]
+        del sizes[:]
+        t0 = time.perf_counter()
+        code, body = _http("POST", base + "/navigate", {"items": big})
+        wall = time.perf_counter() - t0
+        split = list(sizes)
+        if code != 200 or split != [8, 8, 4]:
+            fail(f"[serve_http] the 20-item request: {code}, batches {split}")
+        _same_records(body["predictions"], nav.navigate(big), big, "[serve_http] 20 items")
+        log(f"[serve_http] one request of 20 items: batches {split}, answered once in "
+            f"{wall:.3f} s, in request order, equal to navigate() of the same items | "
+            f"{card}")
+        code, body = _http("POST", base + "/navigate", {"items": [{"instructions": "x"}]})
+        if code != 400 or "item 0" not in body.get("error", ""):
+            fail(f"[serve_http] a malformed item: {code} {body}")
+        code, body = _http("POST", base + "/navigate", {"items": [{}] * 65})
+        if code != 413:
+            fail(f"[serve_http] 65 items over max_items 64: {code} {body}")
+        log("[serve_http] /healthz 200, a malformed item 400, 65 items over max_items "
+            "64 413")
+    finally:
+        server.shutdown()
+        server.service.close()
+        thread.join(timeout=60)
+        nav.prepare = real_prepare
+    spec = importlib.util.spec_from_file_location(
+        "bench_serving_torch", os.path.join(ROOT, "tools", "bench_serving_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    res = tool.bench(nav, raw, clients=BENCH_CLIENTS, requests_per_client=BENCH_REQUESTS,
+                     items_per_request=BENCH_ITEMS)
+    res["config"] = "full width, fp32, exact render"
+    res["card"] = card
+    log(f"[serve_http] bench_serving_torch {json.dumps(res)}")
+    launches = saliency_stats.launches
+    if launches != 0:
+        fail(f"[serve_http] serving launched saliency_stats {launches} times, expected 0")
+    return launches
+
+
+# ------------------------------------------------------------------- dp --
+
+DP_ROOT = os.path.join(ROOT, "build", "chip_smoke_dp")
+DP_BATCH = 4  # items per rank; the global batch is 8
+DP_ITEMS = 16  # train items: 8 a rank, 2 steps an epoch at B = 4
+DP_TIMEOUT_S = 900  # both ranks' processes, spawn to exit
+DP_GROUP_TIMEOUT_S = 600  # a rendezvous or collective waiting on a lost rank
+# Two ranks vs one process at the global batch, dropout 0: the loss relative,
+# and per group (BERT, Darknet, VLN) the gradient difference's norm over the
+# gradient's norm. A direction error shows in the norm of the difference,
+# not in the difference of the norms. Sound readings at full width on the
+# card (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the loss 9.3e-8, the groups
+# 7.6e-7, 1.77e-2, 4.4e-7. The Darknet's is the random-init Darknet-53's
+# fp32 conditioning in train-mode BatchNorm (3.4e-2 between the one-process
+# step's two BatchNorm formulas; tools/bn_conditioning_torch.py).
+DP_LOSS_BAR = 1e-4
+DP_DIFF_BARS = (1e-4, 1e-1, 1e-4)
+
+
+def _over_dp_bars(gap):
+    """The largest of ``gap``'s readings as a multiple of its bar."""
+    return max([gap["loss_rel"] / DP_LOSS_BAR]
+               + [d / b for d, b in zip(gap["diff_rel"], DP_DIFF_BARS)])
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _step_with_grads(cfg, models, arr, batch, group, seed=SEED + 1):
+    """One ``make_train_step`` step: ``(loss, {name: the gradient the
+    optimizers were given})``."""
+    import torch
+
+    from avdn_tpu_torch.train import optim
+    from avdn_tpu_torch.train.step import create_train_state, make_train_step
+
+    state = create_train_state(cfg, *models)
+    seen = []
+    real = optim.Adam.step
+
+    def record(opt, grads, *a, **kw):
+        seen.append([g.detach().clone() for g in grads])
+        return real(opt, grads, *a, **kw)
+
+    optim.Adam.step = record
+    try:
+        m = make_train_step(cfg, *models, group=group)(
+            state, arr, batch, torch.Generator(arr.device).manual_seed(seed))
+    finally:
+        optim.Adam.step = real
+    grads = {f"{i}.{n}": g for i, (opt, gs) in enumerate(zip(state.optimizers(), seen))
+             for n, g in zip(opt.names, gs)}
+    return float(m["loss"]), grads
+
+
+def _grad_gap(got, want):
+    """How far the step ``got`` (loss, {name: gradient}) is from ``want``:
+    the loss's relative difference; per group (BERT, Darknet, VLN) the
+    gradient norm's relative difference and the difference's norm over the
+    norm; and the largest difference relative to its leaf's largest
+    magnitude, with the leaf (BERT's attention key biases, zero in exact
+    arithmetic, relative to their group's largest gradient)."""
+    import torch
+
+    def groups(g):
+        out = {}
+        for k, v in g.items():
+            out.setdefault(k.split(".")[0], []).append(k)
+        return out
+
+    gap = dict(loss_rel=abs(got[0] - want[0]) / abs(want[0]), norm_rel=[], diff_rel=[])
+    worst = (0.0, "")
+    for _, keys in sorted(groups(want[1]).items()):
+        norm = float(torch.sqrt(sum((want[1][k].double() ** 2).sum() for k in keys)))
+        mine = float(torch.sqrt(sum((got[1][k].double() ** 2).sum() for k in keys)))
+        diff = float(torch.sqrt(sum(((got[1][k] - want[1][k]).double() ** 2).sum()
+                                    for k in keys)))
+        gap["norm_rel"].append(abs(mine - norm) / norm)
+        gap["diff_rel"].append(diff / norm)
+        top = max(float(want[1][k].abs().max()) for k in keys)
+        for k in keys:
+            scale = top if "attention.self.key.bias" in k else float(want[1][k].abs().max())
+            worst = max(worst, (float((got[1][k] - want[1][k]).abs().max())
+                                / max(scale, 1e-30), k))
+    gap["leaf_worst"], gap["leaf"] = worst
+    return gap
+
+
+def _describe_gap(gap):
+    return (f"loss {gap['loss_rel']:.3e} relative; grad norms (BERT, Darknet, VLN) "
+            + ", ".join(f"{x:.3e}" for x in gap["norm_rel"]) + " relative; the "
+            "differences' norms " + ", ".join(f"{x:.3e}" for x in gap["diff_rel"])
+            + f" of the groups'; the largest leaf difference {gap['leaf_worst']:.3e} "
+            f"of its max ({gap['leaf']})")
+
+
+@contextlib.contextmanager
+def global_batch_formula():
+    """One process's train step computing BatchNorm as the data-parallel
+    step does (``BatchNorm2d._global_batch_forward``, the sums local): what
+    a world of one computes without the collectives."""
+    from avdn_tpu_torch.parallel import batch as pbatch
+
+    real = pbatch.active
+    pbatch.active = lambda: True
+    try:
+        yield
+    finally:
+        pbatch.active = real
+
+
+def write_dp_dataset():
+    """Phase 5's val splits and maps, and ``DP_ITEMS`` train items."""
+    data = os.path.join(DP_ROOT, "data")
+    anno = os.path.join(data, "AVDN", "annotations")
+    os.makedirs(anno, exist_ok=True)
+    with open(os.path.join(anno, "train_data.json"), "w") as f:
+        json.dump(make_items(SEED + 7, prefix="d")[:DP_ITEMS], f)
+    src = os.path.join(VALID_ROOT, "data", "AVDN")
+    for split in ("val_seen", "val_unseen"):
+        with open(os.path.join(src, "annotations", f"{split}_data.json")) as f:
+            part = json.load(f)
+        with open(os.path.join(anno, f"{split}_data.json"), "w") as f:
+            json.dump(part, f)
+    images = os.path.join(data, "AVDN", "train_images")
+    if not os.path.exists(images):
+        os.symlink(os.path.join(src, "train_images"), images)
+    return data
+
+
+def _dp_one_process(card, data, device="cuda", extra_args=()):
+    """A world of one process (over NCCL on the card) through the real train
+    step (full width, B = 8, fp32, the exact render, dropout on; cuDNN's
+    deterministic algorithms), against the same step from the same weights
+    with no process group: bit-equal to it with BatchNorm's data-parallel
+    formula (``global_batch_formula``),
+    and the gap to the one-process formula (``F.batch_norm``) reported, the
+    loss within 1e-5. Returns the saliency launches of the step in the
+    group."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from avdn_tpu_torch.ops.saliency import saliency_head_grad, saliency_stats
+    from avdn_tpu_torch.train.loop import train_config_from_args
+
+    on_card = torch.device(device).type == "cuda"
+    args = build_args(os.path.join(DP_ROOT, "nccl"), ["--root_dir", data, *extra_args])
+    models, arr, batch = _models_and_batch(args, device, 2 * DP_BATCH)
+    twins = [copy.deepcopy(models) for _ in range(2)]
+    cfg = train_config_from_args(args)
+    # cuDNN's default weight-gradient algorithms add in a run-dependent order
+    # (two runs of one step differ in the Darknet's gradients): bit-equality
+    # needs its deterministic ones
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        saliency_stats.launches = saliency_head_grad.launches = 0
+        t0 = time.perf_counter()
+        with_group = _step_with_grads(cfg, models, arr, batch, dist.group.WORLD)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = (saliency_stats.launches, saliency_head_grad.launches)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    try:
+        with global_batch_formula():
+            same_formula = _step_with_grads(cfg, twins[0], arr, batch, None)
+        plain = _step_with_grads(cfg, twins[1], arr, batch, None)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del models, twins
+    if on_card and launches != (T_STEPS + 1, T_STEPS):
+        fail(f"[dp] {backend} world of 1: saliency launches {launches}, expected "
+             f"({T_STEPS + 1}, {T_STEPS})")
+    if not (with_group[0] == same_formula[0] and all(
+            torch.equal(g, same_formula[1][k]) for k, g in with_group[1].items())):
+        fail(f"[dp] {backend} world of 1 vs no group, the same BatchNorm formula: not "
+             f"bit-equal: {_describe_gap(_grad_gap(with_group, same_formula))}")
+    gap = _grad_gap(with_group, plain)
+    if not gap["loss_rel"] <= 1e-5:
+        fail(f"[dp] {backend} world of 1 vs the one-process step: {_describe_gap(gap)} "
+             "(bar 1e-5 on the loss)")
+    log(f"[dp] {backend} world of 1, the real step at B = {2 * DP_BATCH}, fp32, exact "
+        f"render: {wall * 1e3:.1f} ms, loss {with_group[0]!r}; bit-equal to the step "
+        f"with no process group and the same BatchNorm formula; against the "
+        f"one-process step (F.batch_norm; flax's E[x^2] - E[x]^2 of the all-reduced "
+        f"sums here) {_describe_gap(gap)}; saliency launches forward {launches[0]} "
+        f"backward {launches[1]} | {card}")
+    return launches, gap
+
+
+def _dp_two_processes(card, data, device="cuda", extra_args=()):
+    """``cli.train_et`` in two processes over gloo on the one card (NCCL
+    refuses two ranks on one device), B = 4 a rank: 2 steps, a checkpoint
+    and a validation, ``--resume_file latest`` and 2 more; then one step
+    with dropout 0, and its control, against one process at B = 8.
+    Returns each rank's result."""
+    port = _free_port()
+    procs, logs = [], []
+    for rank in range(2):
+        env = dict(os.environ, AVDN_NUM_PROCESSES="2",
+                   AVDN_COORDINATOR=f"127.0.0.1:{port}", AVDN_PROCESS_ID=str(rank))
+        logs.append(open(os.path.join(DP_ROOT, f"rank{rank}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp_worker", str(rank), data,
+             device, json.dumps(list(extra_args))],
+            cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for rank, p in enumerate(procs):
+        with open(os.path.join(DP_ROOT, f"rank{rank}.log")) as f:
+            text = f.read()
+        if p.returncode != 0:
+            fail(f"[dp] rank {rank} exited {p.returncode}:\n{text[-6000:]}")
+    results = []
+    for rank in range(2):
+        with open(os.path.join(DP_ROOT, f"rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def dp_worker(rank, data, device="cuda", extra_args=()):
+    """One rank of ``_dp_two_processes`` (``python chip_smoke.py --dp_worker
+    <rank> <dataset> <device> <extra flags as JSON>``, with the ``AVDN_*``
+    variables set). It joins the group over gloo itself (NCCL refuses two
+    ranks on one card), so the driver's ``maybe_init_distributed`` finds it
+    joined."""
+    import hashlib
+
+    import torch
+
+    import avdn_tpu_torch.ops.saliency as sal
+    import avdn_tpu_torch.train.checkpoints as ckpt
+    import avdn_tpu_torch.train.loop as loop
+    from avdn_tpu_torch.cli.train_et import main as cli_main
+    from avdn_tpu_torch.models.layers import Dropout
+    from avdn_tpu_torch.parallel import batch as pbatch
+    from avdn_tpu_torch.parallel.collectives import init_distributed
+
+    init_distributed(os.environ["AVDN_COORDINATOR"], 2, rank, backend="gloo",
+                     timeout_s=DP_GROUP_TIMEOUT_S)
+    on_card = torch.device(device).type == "cuda"
+    # the N of each saliency launch (the counts stay the wrappers')
+    by_n = {"fwd": [], "bwd": []}
+    real_fused, real_grad = sal.saliency_fused, sal._head_grad_launch
+
+    def fused(pred, *a, **kw):
+        by_n["fwd"].append(pred.shape[0])
+        return real_fused(pred, *a, **kw)
+
+    def head_grad(x8, *a, **kw):
+        by_n["bwd"].append(x8.shape[0])
+        return real_grad(x8, *a, **kw)
+
+    sal.saliency_fused, sal._head_grad_launch = fused, head_grad
+    steps, saves = [], []
+    real_step, real_save = loop.make_train_step, ckpt.save_checkpoint
+
+    def make_observed_step(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def observed(*sa, **skw):
+            sync(device)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            f0, b0 = len(by_n["fwd"]), len(by_n["bwd"])
+            t0 = time.perf_counter()
+            res = step(*sa, **skw)
+            sync(device)
+            fwd, bwd = by_n["fwd"][f0:], by_n["bwd"][b0:]
+            steps.append(dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                              peak_gb=(torch.cuda.max_memory_allocated() / 2 ** 30
+                                       if on_card else float("nan")),
+                              fwd={str(n): fwd.count(n) for n in sorted(set(fwd))},
+                              bwd={str(n): bwd.count(n) for n in sorted(set(bwd))}))
+            return res
+
+        return observed
+
+    def save(ckpt_dir, name, *a, **kw):
+        saves.append(name)
+        return real_save(ckpt_dir, name, *a, **kw)
+
+    loop.make_train_step, ckpt.save_checkpoint = make_observed_step, save
+    out = os.path.join(DP_ROOT, "out")
+    base = ["--root_dir", data, "--output_dir", out, "--seed", str(SEED),
+            "--max_action_len", str(T_STEPS), "--batch_size", str(DP_BATCH),
+            "--iters", "2", "--log_every", "1", *extra_args]
+    counts0 = (sal.saliency_stats.launches, sal.saliency_head_grad.launches)
+    t0 = time.perf_counter()
+    cli_main(base, device=device)
+    state, history = cli_main(base + ["--resume_file", "latest"], device=device)
+    wall = time.perf_counter() - t0
+    launches = (sal.saliency_stats.launches - counts0[0],
+                sal.saliency_head_grad.launches - counts0[1])
+    loop.make_train_step, ckpt.save_checkpoint = real_step, real_save
+    digest = hashlib.sha256()
+    for m in state.models():
+        for t in m.state_dict().values():
+            digest.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    for opt in state.optimizers():
+        for t in opt.mu + opt.nu:
+            digest.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    del state
+
+    # one step at dropout 0 against one process at the global batch
+    from avdn_tpu_torch.train.loop import train_config_from_args
+    from avdn_tpu_torch.train.step import _micro_batch
+
+    args = build_args(os.path.join(DP_ROOT, f"parity{rank}"),
+                      ["--root_dir", data, *extra_args])
+    models, arr, batch = _models_and_batch(args, device, 2 * DP_BATCH)
+    for m in models:
+        for mod in m.modules():
+            if isinstance(mod, Dropout):
+                mod.p = 0.0
+    half = _micro_batch(batch, rank, 2)
+    cfg = train_config_from_args(args)
+    ref_models = copy.deepcopy(models) if rank == 0 else None
+    ctrl_models = copy.deepcopy(models)
+    dp = _step_with_grads(cfg, models, arr, half, torch.distributed.group.WORLD)
+    del models
+    # the control: the same step with BatchNorm on each rank's own statistics
+    real_sum = pbatch.batch_sum
+    pbatch.batch_sum = lambda x: x
+    try:
+        ctrl = _step_with_grads(cfg, ctrl_models, arr, half, torch.distributed.group.WORLD)
+    finally:
+        pbatch.batch_sum = real_sum
+    del ctrl_models
+    parity = control = None
+    if rank == 0:
+        with global_batch_formula():
+            one = _step_with_grads(cfg, ref_models, arr, batch, None)
+        parity = dict(_grad_gap(dp, one), loss=dp[0], one_process_loss=one[0])
+        control = dict(_grad_gap(ctrl, one), loss=ctrl[0])
+    result = dict(rank=rank, steps=steps, saves=saves, history=history,
+                  wall_s=wall, launches=list(launches),
+                  digest=digest.hexdigest(), parity=parity, control=control,
+                  peak_gb=max(s["peak_gb"] for s in steps))
+    with open(os.path.join(DP_ROOT, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_dp(card, device="cuda", extra_args=()):
+    """Data parallelism on the one card: a world of one process over NCCL
+    through the real step (``_dp_one_process``), then two processes
+    over gloo (``_dp_two_processes``): both exit 0, rank 0 alone wrote the
+    checkpoints, the replicas (weights and Adam moments) bit-identical,
+    both ranks' metric records equal, the resume loaded, every step's
+    saliency launches 10 at N = 4 and 1 at N = 40 forward and 10 at N = 4
+    backward on each rank, and the dropout-0 step within the bars
+    (``DP_LOSS_BAR``, ``DP_DIFF_BARS``) of one process at B = 8, which the
+    control (the same step with BatchNorm on each rank's own statistics)
+    must fail. Returns ``({path: forward launches}, {path: backward
+    launches})``."""
+    import torch
+
+    import shutil
+
+    on_card = torch.device(device).type == "cuda"
+    data = write_dp_dataset()
+    if on_card:
+        torch.cuda.empty_cache()
+    nccl, nccl_gap = _dp_one_process(card, data, device, extra_args)
+    if on_card:
+        torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(DP_ROOT, "out"), ignore_errors=True)
+    t0 = time.perf_counter()
+    r0, r1 = _dp_two_processes(card, data, device, extra_args)
+    wall = time.perf_counter() - t0
+    if r0["digest"] != r1["digest"]:
+        fail("[dp] the two ranks' weights and Adam moments differ after 4 steps")
+    if r0["saves"] != ["latest_dict_2", "best_val_unseen", "latest_dict_4",
+                       "best_val_unseen"] or r1["saves"]:
+        fail(f"[dp] checkpoints written: rank 0 {r0['saves']}, rank 1 {r1['saves']}")
+    out = os.path.join(DP_ROOT, "out")
+    with open(os.path.join(out, "logs", "train.txt")) as f:
+        text = f.read()
+    if "latest_dict_2.pt, iteration 2" not in text:
+        fail("[dp] the resume did not load latest_dict_2.pt")
+    recs = []
+    for log_dir in ("logs", os.path.join("logs", "proc1")):
+        with open(os.path.join(out, log_dir, "metrics.jsonl")) as f:
+            recs.append([{k: v for k, v in json.loads(line).items()
+                          if not k.startswith("throughput/")} for line in f])
+    if recs[0] != recs[1] or not any("spl/val_unseen" in r for r in recs[0]):
+        fail("[dp] the two ranks' metric records differ")
+    want_fwd = {str(DP_BATCH): T_STEPS, str(DP_BATCH * T_STEPS): 1}
+    want_bwd = {str(DP_BATCH): T_STEPS}
+    for r in (r0, r1):
+        if len(r["steps"]) != 4:
+            fail(f"[dp] rank {r['rank']} ran {len(r['steps'])} steps, expected 4")
+        for i, st in enumerate(r["steps"]):
+            if on_card and (st["fwd"] != want_fwd or st["bwd"] != want_bwd):
+                fail(f"[dp] rank {r['rank']} step {i + 1}: saliency launches by N "
+                     f"forward {st['fwd']} backward {st['bwd']}, expected {want_fwd} "
+                     f"{want_bwd}")
+        log(f"[dp] rank {r['rank']}: 4 steps at B = {DP_BATCH} (global "
+            f"{2 * DP_BATCH}), walls " + ", ".join(f"{s['wall_ms']:.1f}" for s in
+                                                   r["steps"])
+            + f" ms; peak memory {r['peak_gb']:.2f} GiB (max_memory_allocated of the "
+            f"rank's process); saliency_stats launches {r['launches'][0]} (per step "
+            f"{want_fwd} by N), saliency_head_grad {r['launches'][1]} (per step "
+            f"{want_bwd}); checkpoints written {r['saves']} | {card}")
+    p, c = r0["parity"], r0["control"]
+    bars = f"bars: the loss {DP_LOSS_BAR:g}, the differences' norms {DP_DIFF_BARS}"
+    if _over_dp_bars(p) > 1.0:
+        fail(f"[dp] two ranks vs one process at B = {2 * DP_BATCH}, dropout 0: "
+             f"{_describe_gap(p)} ({bars})")
+    if _over_dp_bars(c) <= 1.0:
+        fail(f"[dp] the control (BatchNorm on each rank's own statistics) passes the "
+             f"bars, so they cannot see a missing collective: {_describe_gap(c)} ({bars})")
+    log(f"[dp] 2 processes over gloo, cli.train_et 2 steps + validation, resume + 2 "
+        f"steps + validation: {wall:.1f} s (both spawns included); replicas "
+        f"bit-identical, metric records equal, rank 0 alone wrote checkpoints; one "
+        f"step at dropout 0 vs one process at B = {2 * DP_BATCH} (the same BatchNorm "
+        f"formula; {bars}): {_describe_gap(p)}; {_over_dp_bars(p):.3g} of the bars | "
+        f"{card}")
+    log(f"[dp] the control, each rank's BatchNorm on its own statistics, vs one process: "
+        f"{_describe_gap(c)}; {_over_dp_bars(c):.3g} of the bars (fails them, as it "
+        f"must) | {card}")
+    fwd = {"dp_nccl1": nccl[0], "dp_rank0": r0["launches"][0],
+           "dp_rank1": r1["launches"][0]}
+    bwd = {"dp_nccl1": nccl[1], "dp_rank0": r0["launches"][1],
+           "dp_rank1": r1["launches"][1]}
+    return fwd, bwd, dict(rank0=r0["steps"], rank1=r1["steps"], parity=p, control=c,
+                          nccl_world_of_one_vs_plain=nccl_gap,
+                          peak_gb=[r0["peak_gb"], r1["peak_gb"]])
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     try:
@@ -1911,6 +2543,8 @@ def main() -> None:
     done("kernels")
     nav, items, maps, launches = phase_slice(card)
     done("slice")
+    launches["serve_http"] = phase_serve_http(card, nav)
+    done("serve_http")
     launches["valid"] = phase_valid(card, nav, maps)
     done("valid")
     nav_def, chunks, got = phase_defaults(card, nav, maps)
@@ -1926,6 +2560,10 @@ def main() -> None:
     done("train production")
     phase_train_parity(card)
     done("train parity")
+    dp_fwd, dp_bwd, dp_summary = phase_dp(card)
+    launches.update(dp_fwd)
+    train_bwd.update(dp_bwd)
+    done("dp")
     lstm_fwd, lstm_bwd, lstm_summary = phase_lstm(card, maps)
     launches.update(lstm_fwd)
     train_bwd.update(lstm_bwd)
@@ -1982,6 +2620,7 @@ def main() -> None:
         "train_step": train_summary,
         "train_step_production": prod_summary,
         "train_step_lstm": lstm_summary,
+        "train_step_dp": dp_summary,
     }]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
@@ -1990,4 +2629,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp_worker"]:
+        dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], json.loads(sys.argv[5]))
+    else:
+        main()

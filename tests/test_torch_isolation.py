@@ -7,10 +7,11 @@
   running on the CPU, and ``chip_smoke.py`` exits non-zero without a result.
 * Every eval mode of the JAX package is accepted (the shipped defaults and
   the opt-in modes), the LSTM family (its student stop threshold 0.25),
-  training at the reference configuration and the production recipe; what
-  the port cannot run yet (multi-process runs) raises
-  ``NotImplementedError`` naming its ROADMAP.md item, and an unknown family
-  ``ValueError``.
+  training at the reference configuration and the production recipe; a
+  multi-process flag the process cannot honour raises ``ValueError`` naming
+  the fix (``--world_size 2`` in one process names the launch of 2
+  processes, ``AVDN_NUM_PROCESSES=2`` without ``AVDN_COORDINATOR`` names
+  it), and so does an unknown family.
 """
 
 import dataclasses
@@ -50,14 +51,18 @@ def test_import_loads_no_jax_or_reference_package():
     for name in ("serve", "train.loop", "train.step", "train.optim",
                  "train.checkpoints", "utils.preemption", "rollout.fused",
                  "models.et_fast", "models.lstm", "data.annotations", "utils.logging",
-                 "utils.seed", "viz", "cli.main", "cli.train_et", "cli.train_lstm"):
+                 "utils.seed", "viz", "cli.main", "cli.train_et", "cli.train_lstm",
+                 "serve_http", "parallel.runtime", "parallel.collectives",
+                 "parallel.batch"):
         assert "avdn_tpu_torch." + name in modules
     assert [m for m in modules if _forbidden(m)] == []
 
 
 def test_sources_import_nothing_of_jax():
     pattern = re.compile(r"^\s*(?:from|import)\s+(jax|flax|avdn_tpu)(?:\.|\s|$)", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tools", name)
+        for name in ("bench_serving_torch.py", "bn_conditioning_torch.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
@@ -135,13 +140,23 @@ def _mode_args(tmp_path, flags):
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unsupported_flags_raise(case, tmp_path):
-    from avdn_tpu_torch.train.loop import check_supported, eval_config_from_args
+    """``--world_size 2`` passes the flag checks, and in one process the
+    runtime refuses it, naming how to launch 2 processes (one per card);
+    ``valid()`` and the ``Navigator`` refuse it before building a model."""
+    from avdn_tpu_torch.parallel.runtime import setup_runtime
+    from avdn_tpu_torch.serve import Navigator
+    from avdn_tpu_torch.train.loop import (check_supported, eval_config_from_args,
+                                           valid)
     from avdn_tpu_torch.train.step import check_rollout_supported
 
     args = _mode_args(tmp_path, UNSUPPORTED[case])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        check_supported(args, torch.device("cpu"))
-        check_rollout_supported(eval_config_from_args(args))
+    check_supported(args, torch.device("cpu"))
+    check_rollout_supported(eval_config_from_args(args))
+    launch = "launch 2 processes with AVDN_NUM_PROCESSES=2"
+    for call in (lambda: setup_runtime(args), lambda: valid(args, device="cpu"),
+                 lambda: Navigator(args, device="cpu")):
+        with pytest.raises(ValueError, match=launch):
+            call()
 
 
 @pytest.mark.parametrize("case", sorted(SUPPORTED))
@@ -228,8 +243,9 @@ def test_fused_teacher_rollout_raises(tmp_path):
 
 
 def test_driver_rejects_what_it_cannot_run(tmp_path, monkeypatch):
-    """The drivers raise, naming the ROADMAP.md item, for orbax checkpoints
-    and multi-process runs, and on a malformed ``--optim`` or
+    """The drivers raise for orbax checkpoints (naming the export tool), for
+    ``AVDN_NUM_PROCESSES=2`` without the coordinator's address (naming
+    ``AVDN_COORDINATOR``), and on a malformed ``--optim`` or
     ``--remat_policy``; ``--resume_file latest`` without a checkpoint is a
     missing file in ``valid()``. The production train recipe
     (``--preset production``: batch 16, ``--bf16 True`` training, the
@@ -268,5 +284,8 @@ def test_driver_rejects_what_it_cannot_run(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="export_torch_ckpt"):
         valid(args, device="cpu")
     monkeypatch.setenv("AVDN_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+    monkeypatch.delenv("AVDN_COORDINATOR", raising=False)
+    with pytest.raises(ValueError, match="AVDN_COORDINATOR"):
         cli_main(base + ["--inference", "True"], device="cpu")
+    with pytest.raises(ValueError, match="AVDN_COORDINATOR"):
+        cli_main(base, device="cpu")
