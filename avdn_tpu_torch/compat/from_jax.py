@@ -226,6 +226,12 @@ def lstm_state_dict(lstm_vars: Dict[str, Any]) -> Dict[str, np.ndarray]:
 #: Every other key is loaded strictly.
 IGNORED_BUFFERS = {"lang_model": ("bert.embeddings.position_ids",)}
 
+#: Modules of the reference's ET that its forward never runs, which a
+#: released ``best_val_unseen`` carries and the JAX importer skips
+#: (``dec_action`` and the vision attention's ``c`` head, ET_haa.py:41-52):
+#: keys under these prefixes of ``vln_model`` are dropped in the ET layout.
+DEAD_MODULES = {"et": {"vln_model": ("dec_action.", "attention_layer_vision.c.")}}
+
 
 #: the LSTM agent nests the Darknet's keys under this prefix of
 #: ``vln_model`` (src/xview_lstm/agent.py:860-877)
@@ -253,9 +259,11 @@ def split_lstm_agent(nested: Dict[str, Any]):
 def load_reference_agent(path: str, family: str = "et") -> Dict[str, Dict[str, torch.Tensor]]:
     """Read an agent checkpoint ``.pt`` of ``family``'s layout →
     ``{"lang_model", "vision_model", "vln_model"}`` state dicts (CPU
-    tensors), without the :data:`IGNORED_BUFFERS`. The ET layout holds the
-    three entries; the LSTM layout holds ``lang_model`` and ``vln_model``,
-    with the Darknet's keys under ``vision_model.`` in ``vln_model``."""
+    tensors), without the :data:`IGNORED_BUFFERS` and the reference's
+    :data:`DEAD_MODULES`. The ET layout holds the three entries; the LSTM
+    layout holds ``lang_model`` and ``vln_model``, with the Darknet's keys
+    under ``vision_model.`` in ``vln_model``. Each entry's ``optimizer``
+    (the reference's torch optimizer state, or the port's) is not read."""
     check_family(family)
     blob = torch.load(path, map_location="cpu", weights_only=False)
     missing = [k for k in AGENT_LAYOUTS[family] if k not in blob]
@@ -271,8 +279,15 @@ def load_reference_agent(path: str, family: str = "et") -> Dict[str, Dict[str, t
     sds = {k: blob[k]["state_dict"] for k in AGENT_LAYOUTS[family]}
     if family == "lstm":
         sds["vision_model"], sds["vln_model"] = split_lstm_agent(sds["vln_model"])
-    return {k: {name: v for name, v in sd.items() if name not in IGNORED_BUFFERS.get(k, ())}
-            for k, sd in sds.items()}
+    return {k: weights_only(sd, k, family) for k, sd in sds.items()}
+
+
+def weights_only(sd: Dict[str, Any], entry: str, family: str) -> Dict[str, Any]:
+    """``sd`` (the state dict of checkpoint entry ``entry``) without the
+    :data:`IGNORED_BUFFERS` and the :data:`DEAD_MODULES` of ``family``."""
+    dead = DEAD_MODULES.get(family, {}).get(entry, ())
+    return {name: v for name, v in sd.items()
+            if name not in IGNORED_BUFFERS.get(entry, ()) and not name.startswith(dead)}
 
 
 def load_agent_weights(models, state_dicts: Dict[str, Dict[str, Any]]) -> None:

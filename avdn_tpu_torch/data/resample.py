@@ -1,13 +1,14 @@
-"""INTER_AREA resampling of uint8 map tiles on the host.
+"""INTER_AREA resampling of uint8 map tiles on the host: the plain version.
 
-The port's own copy of the JAX package's native resampler
-(``native/avdn_host/avdn_host.cpp:area_resize_u8``): each destination pixel
-averages the exact fractional coverage of its source footprint. It is
-written in numpy float64 with the C++ code's order of operations — every
+The map bank resamples with the port's host library
+(``csrc/avdn_host.cpp:area_resize_u8`` through ``data/native.py``); this is
+the same function in numpy float64, which the tests hold the library
+against. Each destination pixel averages the exact fractional coverage of
+its source footprint. It follows the C++ code's order of operations — every
 product and sum rounded once, no fused multiply-add — so its output is
-bit-equal to the native library's (the library is built without ``-march``,
-where the compiler emits no FMA). OpenCV's INTER_AREA, which uses fixed
-point, is ±1 intensity off on about 0.5 % of pixels.
+bit-equal to the library's (built without ``-march``, where the compiler
+emits no FMA). OpenCV's INTER_AREA, which uses fixed point, is ±1 intensity
+off on about 0.5 % of pixels.
 
 Vectorised over rows and columns; the only Python loops run over the span
 index (a few taps per destination pixel) and over blocks of destination

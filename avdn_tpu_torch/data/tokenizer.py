@@ -1,6 +1,10 @@
 """WordPiece tokenizer (bert-base-uncased compatible) — the port's copy of
-the Python encoder of ``avdn_tpu/data/tokenizer.py`` (the C++ encoder in
-``native/`` is ROADMAP.md queue 1 item 1's remaining part).
+``avdn_tpu/data/tokenizer.py``: the static-shape batches of the main path
+(``max_length`` and ``pad_to`` both set, as ``data/batcher.py`` calls it)
+are encoded by the C++ encoder of the port's host library
+(``csrc/avdn_host.cpp`` through ``data/native.py``); the Python encoder,
+``_encode_python``, takes the other calls, the texts the C++ side refuses
+(non-ASCII) and the vocabularies it cannot take (ids not dense 0..n-1).
 
 The reference depends on HuggingFace ``BertTokenizerFast`` downloads
 (src/xview_et/agent.py:125). This implementation reproduces the BERT basic +
@@ -14,9 +18,12 @@ from __future__ import annotations
 
 import os
 import unicodedata
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from avdn_tpu_torch.data import native
 
 PAD, UNK, CLS, SEP, MASK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
 
@@ -80,6 +87,8 @@ class WordPieceTokenizer:
         self.unk_id = vocab[UNK]
         self.cls_id = vocab[CLS]
         self.sep_id = vocab[SEP]
+        self._native = None  # the C++ encoder's handle, made at first use
+        self._native_made = False
 
     # ------------------------------------------------------------ loading
     @staticmethod
@@ -159,6 +168,31 @@ class WordPieceTokenizer:
             self.vocab[tk] if tk in self.vocab else self.unk_id for tk in toks
         ] + [self.sep_id]
 
+    # ------------------------------------------------------- native path
+    def _native_handle(self) -> Optional[int]:
+        """The C++ encoder's handle for this vocabulary, made at first use
+        and destroyed with the tokenizer; None where the C++ side cannot take
+        the vocabulary (a real one whose ids are not dense 0..n-1, or one it
+        refuses). A host library that does not build raises."""
+        if self._native_made:
+            return self._native
+        size = getattr(self.vocab, "_size", None)
+        if size is not None:  # hashed vocabulary
+            handle = native.wp_create(None, self.lowercase, hash_size=size)
+        else:
+            inv = {i: tok for tok, i in self.vocab.items()}
+            n = len(self.vocab)
+            handle = None
+            if len(inv) == n and set(inv) == set(range(n)):
+                text = "\n".join(inv[i] for i in range(n))
+                handle = native.wp_create(text.encode("utf-8"), self.lowercase)
+        if handle:
+            # bound to the library that made the handle: a finalizer that
+            # runs inside a collection never re-enters native.library()
+            weakref.finalize(self, native.library().wp_destroy, handle)
+        self._native, self._native_made = handle, True
+        return handle
+
     def __call__(
         self,
         texts: Sequence[str],
@@ -170,7 +204,31 @@ class WordPieceTokenizer:
 
         ``pad_to`` forces a fixed sequence length (static shapes);
         default pads to the batch max like the reference's ``padding=True``.
+        The static-shape case (both set: every call of the main path) runs
+        in the C++ encoder; a text with a non-ASCII byte is re-encoded alone
+        by the Python encoder (BERT's accent stripping needs the Unicode
+        tables), as the JAX package does.
         """
+        if max_length is not None and pad_to is not None and len(texts):
+            handle = self._native_handle()
+            if handle:
+                ids_arr, mask, refused = native.wp_encode_batch(
+                    handle, list(texts), max_length, pad_to)
+                for i in refused:
+                    s = self._encode_ids(texts[i], max_length)[:pad_to]
+                    ids_arr[i, :] = self.pad_id
+                    ids_arr[i, : len(s)] = s
+                    mask[i, : len(s)] = 1
+                return ids_arr, mask
+        return self._encode_python(texts, max_length, pad_to)
+
+    def _encode_python(
+        self,
+        texts: Sequence[str],
+        max_length: Optional[int] = None,
+        pad_to: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """The Python encoder: the same rows as :meth:`__call__`."""
         seqs = [self._encode_ids(t, max_length) for t in texts]
         L = pad_to if pad_to is not None else max(len(s) for s in seqs)
         ids_arr = np.full((len(seqs), L), self.pad_id, np.int32)

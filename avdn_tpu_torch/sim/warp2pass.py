@@ -197,8 +197,10 @@ def render_batch_twopass(map_bank: torch.Tensor, map_idx: torch.Tensor,
     float32 on the 0–255 scale, saliency (B, out, out) float32)."""
     if band:
         raise NotImplementedError(
-            "band=True is the JAX package's benchmark-only banded warp, reached "
-            "only from its tools (ROADMAP.md queue 1 item 15)")
+            "band=True has no counterpart in the port: the JAX package's banded "
+            "warp tiles its dense tent contraction, and the port's two-pass warp "
+            "gathers two taps per sample (_taps), which leaves no contraction "
+            "to band")
     quads = torch.round(src_quads_xy.float())
     if bf16 and map_bank.device.type == "cpu":
         bf16 = False  # the JAX package's CPU rule (warp2pass.py:315-316)

@@ -25,7 +25,7 @@ from typing import Dict, List
 
 import torch
 
-from avdn_tpu_torch.compat.from_jax import nest_lstm_agent, split_lstm_agent
+from avdn_tpu_torch.compat.from_jax import nest_lstm_agent, split_lstm_agent, weights_only
 
 #: the checkpoint's submodel entries, in the train state's order
 ENTRIES = ("lang_model", "vision_model", "vln_model")
@@ -107,16 +107,17 @@ def wait_for_saves() -> None:
 
 def load_checkpoint(path: str, state, optimizer: bool = True) -> int:
     """Load a checkpoint of ``state.family``'s layout into ``state`` in
-    place: the three modules strictly (BatchNorm statistics included) and,
-    with ``optimizer``, the three optimizers' states. Returns and sets the
+    place: the three modules strictly (BatchNorm statistics included; HF's
+    ``position_ids`` and the reference's dead ET modules are skipped, as
+    ``compat/from_jax.py:load_reference_agent`` skips them) and, with
+    ``optimizer``, the three optimizers' states. Returns and sets the
     checkpoint's step (for a reference checkpoint without one, its
     ``epoch`` − 1, as the reference's loader returns it)."""
     blob = torch.load(path, map_location="cpu", weights_only=False)
     entries = _entries(blob, state.family)
     for key, model in zip(ENTRIES, state.models()):
-        sd = {k: v for k, v in entries[key]["state_dict"].items()
-              if k != "bert.embeddings.position_ids"}  # HF's buffer, no weight
-        model.load_state_dict(sd, strict=True)
+        model.load_state_dict(weights_only(entries[key]["state_dict"], key, state.family),
+                              strict=True)
     if optimizer:
         for key, opt in zip(ENTRIES, state.optimizers()):
             if not isinstance(entries[key].get("optimizer"), dict) or \

@@ -15,9 +15,9 @@ treats preemption as a first-class event:
 * with ``--resume_file latest`` (auto-resume) the relaunched job continues
   from that exact step — preemption costs at most one step of work.
 
-The port runs one process (multi-process runs are ROADMAP.md queue 1
-item 14); the JAX package's per-step consensus across processes comes with
-them.
+In a multi-process run the train loop ORs the processes' flags every step
+(``parallel/runtime.py:ParallelRuntime.any_flag``), so a SIGTERM to any
+process stops all of them at the same step.
 """
 
 from __future__ import annotations

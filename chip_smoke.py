@@ -6,8 +6,11 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build   — every CUDA kernel under avdn_tpu_torch/csrc, one nvcc each, in
-             parallel, into build/avdn_tpu_torch/.
+2. build   — every CUDA kernel under avdn_tpu_torch/csrc, one nvcc each, and
+             the host library (csrc/avdn_host.cpp: the INTER_AREA resampler
+             and the WordPiece encoder) with the host C++ compiler, all in
+             parallel, into build/avdn_tpu_torch/; prints the compiler and
+             flags of each.
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes (the fused saliency kernel: B = 4, 8 and
              16, the per-step batches, and 40, 80, 160 and 240, T·B of the
@@ -27,7 +30,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
              student nav eval (T launches per batch), the time-fused
              teacher HA eval (one launch per batch, N = T·B = 80) and the
              step-by-step HA eval (T launches per batch), the last two held
-             against each other.
+             against each other; then the census of live tensors on the card
+             (``utils/debug.py:format_memory_census(10)``).
 4b. serve_http — phase 4's Navigator behind the port's HTTP front-end
              (``serve_http.make_server`` on 127.0.0.1): 6 concurrent
              clients of 4 items coalesced into batches of at most 8, one
@@ -59,14 +63,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
              the checkpoints loadable by ``valid()``, the saliency
              launches per step (forward T + 1, backward T), the median step
              wall, peak memory and one profiled step (idle share, launches,
-             top kernels; no upsample backward).
+             top kernels; no upsample backward), and the model FLOPs per
+             step (``utils/flops.py``) with the median step's MFU against
+             the card's dense fp32 peak (TF32 off).
 6c. train_production — the same with ``--preset production`` (B = 16, bf16
              towers, the two-pass render in both rollouts, dots remat), T =
              10, on the val splits and 48 train items: the saliency launches
              per step (forward 10 at N = 16 and 1 at N = 160, backward 10 at
              N = 16), the step wall, idle share, launches and peak memory;
              then one step at B = 16 with and without remat (peak memory of
-             each). Then one train step at tiny width, dropout 0, on the card
+             each); the MFU against the dense bf16 peak. Then one train step at tiny width, dropout 0, on the card
              and on the CPU: loss and grad norms within 1e-4 in fp32, and
              within 2e-2 in the production recipe's bf16 (teacher feedback
              through the step loop, fp32 render weights on both sides).
@@ -96,6 +102,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
              step at ``--nss_w 0.1`` (the head gradient T times at N = 4),
              and card vs CPU at tiny width (a student rollout, a train step;
              1e-4).
+6e. entry  — the shipped entry points as a user runs them, at full width,
+             each in a process of its own: a dataset written by
+             ``python -m avdn_tpu_torch.data.demo`` (4 train and 4 items a
+             val split, with a ``yolo_v3.cfg`` of the default Darknet-53 and
+             a ``vocab.txt``); ``bash scripts/run_et_haa_torch.sh`` (B = 4,
+             T = 10, ``--nss_w 0.1``, ``--eval_first True``, 2 steps) with
+             ``--profile_dir``: exit 0,
+             finite losses, a checkpoint, the validation records, both hand
+             kernels in the trace; ``scripts/run_lstm_haa_torch.sh`` alike
+             (``--nss_w 0``: the forward kernel only); ``--inference True``
+             from the ET run's ``best_val_unseen.pt``;
+             ``tools/repro_valid_torch.py`` on an empty root (SKIPPED, exit
+             0) and through ``scripts/repro_valid_torch.sh`` on the release
+             layout written here (random weights as ``best_val_unseen`` in the
+             reference layout with a torch AdamW state and the reference's
+             dead ET modules): its table, every metric finite; the dataset
+             viewer (one JPG per item); the host library against its plain
+             versions: ``area_resize`` bit-equal to ``data/resample.py`` on a
+             3000 × 4000 tile and the native encoder equal to the Python one
+             on the demo dialogs and a non-ASCII text, both timed (host CPU
+             named). The independent ones run side by side; the host
+             library's timings run alone at the end.
 7. render  — the two-pass render fp32 on the card against the CPU (B = 2),
              bf16 against fp32 weights (B = 8), and the per-call time of the
              exact and two-pass renders at B = 8 and N = 80.
@@ -122,6 +150,8 @@ import copy
 import itertools
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -360,6 +390,10 @@ def phase_build():
     t0 = time.perf_counter()
     reports = build.build_all()
     log(f"[build] {sorted(reports)} in {time.perf_counter() - t0:.3f} s")
+    log(f"[build] kernels {build.kernel_sources()}: {build._nvcc()} "
+        f"{' '.join(build.NVCC_FLAGS)}")
+    log(f"[build] host library {build.host_sources()}: {build.host_compiler()} "
+        f"{' '.join(build.HOST_FLAGS)}")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -1441,6 +1475,46 @@ def _train_summary(tag, steps, peak_gb, card, on_card, bwd_per_step=T_STEPS):
     return summary
 
 
+#: dense peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, at 700 W): float32
+#: outside the tensor cores (the port turns TF32 off, device.py:
+#: use_fp32_numerics) and bf16 on them
+PEAK_TFLOPS = {"float32": (67.0, "dense fp32 without tensor cores, TF32 off"),
+               "bfloat16": (989.0, "dense bf16 tensor cores")}
+
+
+def train_mfu(tag, flags, batch, step_ms, card):
+    """The model FLOPs of one train step of the run ``flags`` describe
+    (``utils/flops.py:train_step_flops``: 2 FLOPs a multiply-add,
+    contractions only, BERT's two passes, the teacher and the student
+    rollout of T Darknet forwards and trunk passes each, the backward 2×
+    the forward), and the median step's MFU against the card's dense peak
+    for the towers' dtype. Returns the numbers for the summary."""
+    import torch
+
+    from avdn_tpu_torch.config import parse_args
+    from avdn_tpu_torch.models.darknet import output_channels
+    from avdn_tpu_torch.train.loop import build_models, train_bf16
+    from avdn_tpu_torch.utils.flops import train_step_flops
+
+    args = parse_args(["--output_dir", os.path.join(ROOT, "build", "chip_smoke_mfu"),
+                       "--max_action_len", str(T_STEPS), "--batch_size", str(batch),
+                       *flags])
+    bert, darknet, vln = build_models(args, torch.device("meta"))
+    flops = train_step_flops(bert.cfg, darknet.cfg, vln.cfg, batch, args.max_action_len,
+                             args.max_instr_len, dialog_len=args.dialog_pad,
+                             feat_ch=output_channels(darknet.cfg)[-1])
+    dtype = "bfloat16" if train_bf16(args) else "float32"
+    peak, what = PEAK_TFLOPS[dtype]
+    achieved = flops / (step_ms * 1e-3) / 1e12
+    log(f"[{tag}] model FLOPs per step {flops:.6e} (utils/flops.py train_step_flops, "
+        f"{args.family}, B = {batch}, T = {args.max_action_len}, instructions "
+        f"{args.max_instr_len} and dialog {args.dialog_pad} tokens); median step "
+        f"{step_ms:.1f} ms: {achieved:.3f} TFLOP/s, MFU {achieved / peak:.5f} against the "
+        f"dense peak {peak:g} TFLOP/s ({what}; NVIDIA H100 SXM data sheet) | {card}")
+    return dict(model_flops=flops, tflops=achieved, mfu=achieved / peak,
+                peak_tflops=peak, peak_dtype=dtype)
+
+
 def phase_train(card, device="cuda", extra_args=()):
     """The port's train CLI (``python -m avdn_tpu_torch.cli.train_et`` with no
     preset: fp32 towers, the exact render, ``--feedback student``, the fused
@@ -1454,8 +1528,10 @@ def phase_train(card, device="cuda", extra_args=()):
     steps, fwd, bwd, peak = _train_twice(
         "train", os.path.join(VALID_ROOT, "data"), os.path.join(TRAIN_ROOT, "out"),
         list(extra_args), device, card, SERVE_BATCH)
-    return fwd, bwd, _train_summary("train", steps, peak, card,
-                                    torch.device(device).type == "cuda")
+    summary = _train_summary("train", steps, peak, card, torch.device(device).type == "cuda")
+    summary.update(train_mfu("train", list(extra_args), SERVE_BATCH,
+                             summary["step_wall_ms_median"], card))
+    return fwd, bwd, summary
 
 
 def phase_train_production(card, device="cuda", extra_args=()):
@@ -1503,6 +1579,8 @@ def phase_train_production(card, device="cuda", extra_args=()):
         "train_production", data, os.path.join(PROD_ROOT, "out"), flags, device, card,
         PROD_BATCH)
     summary = _train_summary("train_production", steps, peak, card, on_card)
+    summary.update(train_mfu("train_production", flags, PROD_BATCH,
+                             summary["step_wall_ms_median"], card))
 
     # one step with and without remat from the same weights and batch
     args = resolve_render_crop(parse_args(flags + [
@@ -2519,6 +2597,322 @@ def phase_dp(card, device="cuda", extra_args=()):
                           peak_gb=[r0["peak_gb"], r1["peak_gb"]])
 
 
+ENTRY_ROOT = os.path.join(ROOT, "build", "chip_smoke_entry")
+ENTRY_TIMEOUT_S = 900  # one entry point's process, start to exit
+ENTRY_N_TRAIN = 4  # demo train items: one step an epoch at the recipes' B = 4
+ENTRY_ITERS = 2  # one interval, 2 epochs (--log_every 2): 2 steps, the second traced
+ENTRY_N_VAL = 4  # demo items per val split: one batch at B = 4
+ENTRY_VIEWS = 4  # items the viewer draws
+RESAMPLE_TILE = (3000, 4000)  # an xView-size tile (2-4k px edges)
+NON_ASCII = "Flÿ nörth óver the café, then turn left at the 東 gate"
+
+
+def start_logged(name, cmd):
+    """Start ``cmd`` from the checkout's root in a process group of its own
+    (this interpreter's directory first on PATH), its output to
+    ``build/chip_smoke_entry/<name>.log``. Returns the run for
+    :func:`finish_logged`."""
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable) + os.pathsep
+               + os.environ.get("PATH", ""))
+    out = open(os.path.join(ENTRY_ROOT, name + ".log"), "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    return dict(name=name, cmd=cmd, proc=proc, out=out, t0=time.perf_counter())
+
+
+def stop_logged(run):
+    """Kill the run's whole process group if it is still running."""
+    if run["proc"].poll() is None:
+        os.killpg(run["proc"].pid, signal.SIGKILL)
+        run["proc"].wait()
+    run["out"].close()
+
+
+def finish_logged(run, timeout=ENTRY_TIMEOUT_S):
+    """Wait for a started run (its process group is killed if it outlives
+    ``timeout`` from its start). Returns ``(exit code, output, wall s)``."""
+    left = timeout - (time.perf_counter() - run["t0"])
+    try:
+        rc = run["proc"].wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        stop_logged(run)
+        fail(f"[entry] {run['name']} outlived {timeout} s: {' '.join(run['cmd'])}")
+    wall = time.perf_counter() - run["t0"]
+    stop_logged(run)
+    with open(run["out"].name) as f:
+        text = f.read()
+    log(f"[entry] {run['name']}: exit {rc} in {wall:.1f} s: {' '.join(run['cmd'])}")
+    return rc, text, wall
+
+
+def run_logged(name, cmd, timeout=ENTRY_TIMEOUT_S):
+    """:func:`start_logged` and :func:`finish_logged` in one."""
+    return finish_logged(start_logged(name, cmd), timeout)
+
+
+def _records(out_dir, tag):
+    """The run's ``logs/metrics.jsonl`` records, every value finite."""
+    import numpy as np
+
+    with open(os.path.join(out_dir, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    for r in recs:
+        if not all(np.isfinite(v) for v in r.values()):
+            fail(f"[entry] {tag}: non-finite record {r}")
+    return recs
+
+
+def _trace_launches(trace_path):
+    """Launches of the two hand kernels among a Chrome trace's kernels."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return (sum("saliency_fused_kernel" in n for n in names),
+            sum("head_grad_kernel" in n for n in names), len(names))
+
+
+def write_entry_dataset():
+    """The demo dataset (``python -m avdn_tpu_torch.data.demo``), with the
+    release's ``pretrain_weights``: the default Darknet-53 cfg as
+    ``yolo_v3.cfg`` and a ``vocab.txt`` of the special tokens and the demo
+    dialogs' words. Returns the root."""
+    from avdn_tpu_torch.data.tokenizer import CLS, MASK, PAD, SEP, UNK, basic_tokenize
+    from avdn_tpu_torch.models.darknet import default_xview_cfg
+
+    data = os.path.join(ENTRY_ROOT, "data")
+    rc, text, _ = run_logged("demo", [sys.executable, "-m", "avdn_tpu_torch.data.demo",
+                                      "--out", data, "--n_train", str(ENTRY_N_TRAIN),
+                                      "--n_val", str(ENTRY_N_VAL)])
+    if rc != 0 or "demo dataset written" not in text:
+        fail(f"[entry] the demo generator exited {rc}:\n{text[-4000:]}")
+    pw = os.path.join(data, "AVDN", "pretrain_weights")
+    os.makedirs(pw, exist_ok=True)
+    with open(os.path.join(pw, "yolo_v3.cfg"), "w") as f:
+        f.write(default_xview_cfg())
+    words = set()
+    for split in ("train", "val_seen", "val_unseen"):
+        with open(os.path.join(data, "AVDN", "annotations", f"{split}_data.json")) as f:
+            for item in json.load(f):
+                for text in item["pre_dialogs"] + [item["instructions"]]:
+                    words.update(basic_tokenize(text))
+    with open(os.path.join(pw, "vocab.txt"), "w") as f:
+        f.write("\n".join([PAD, UNK, CLS, SEP, MASK] + sorted(words)) + "\n")
+    log(f"[entry] demo dataset under {data}: {len(os.listdir(os.path.join(data, 'AVDN', 'train_images')))} "
+        f"tiles, vocab of {len(words) + 5} tokens")
+    return data
+
+
+def start_recipe(family, data, extra_args=()):
+    """Start ``bash scripts/run_<family>_haa_torch.sh`` at its recipe with the
+    dataset's paths, the depth and a profile directory appended."""
+    out = os.path.join(ENTRY_ROOT, f"{family}_out")
+    pw = os.path.join(data, "AVDN", "pretrain_weights")
+    return start_logged(f"run_{family}_haa_torch", [
+        "bash", f"scripts/run_{family}_haa_torch.sh", "--root_dir", data,
+        "--output_dir", out, "--iters", str(ENTRY_ITERS),
+        "--darknet_model_file", os.path.join(pw, "yolo_v3.cfg"),
+        "--darknet_weight_file", os.path.join(pw, "best.pt"),  # absent: random init
+        "--profile_dir", os.path.join(out, "profile"), *extra_args])
+
+
+def check_recipe(card, family, run):
+    """A recipe's run: exit 0, one interval's finite losses and a validation
+    before and after it, the checkpoints, and the hand kernels in the trace
+    of the second step (the backward only at the ET's ``--nss_w 0.1``).
+    Returns ``(forward, backward launches in the trace, output dir)``."""
+    rc, text, wall = finish_logged(run)
+    if rc != 0:
+        fail(f"[entry] run_{family}_haa_torch.sh exited {rc}:\n{text[-6000:]}")
+    out = os.path.join(ENTRY_ROOT, f"{family}_out")
+    recs = _records(out, family)
+    losses = [r for r in recs if "loss/IL_loss" in r]
+    vals = [r for r in recs if "spl/val_unseen" in r]
+    if len(losses) != 1 or len(vals) != 2:
+        fail(f"[entry] {family}: {len(losses)} train records and {len(vals)} validation "
+             "records, expected 1 and 2 (--eval_first, then the interval's)")
+    ckpts = sorted(os.listdir(os.path.join(out, "ckpts")))
+    if len(ckpts) != 2 or ckpts[0] != "best_val_unseen.pt" \
+            or not ckpts[1].startswith("latest_dict_"):
+        fail(f"[entry] {family}: checkpoints {ckpts}")
+    fwd, bwd, n = _trace_launches(os.path.join(out, "profile", "trace.json"))
+    if fwd == 0 or (bwd > 0) != (family == "et"):
+        fail(f"[entry] {family}: the traced step launched the forward kernel {fwd} and "
+             f"the backward {bwd} times ({n} kernels)")
+    log(f"[entry] run_{family}_haa_torch.sh: {wall:.1f} s for --eval_first, one "
+        f"interval ({ckpts[1][len('latest_dict_'):-3]} steps), a checkpoint and a "
+        f"validation; IL_loss {losses[0]['loss/IL_loss']:.6f}; val_unseen SPL "
+        f"{vals[-1]['spl/val_unseen']:.4f}; the traced second step: saliency forward "
+        f"x{fwd}, head gradient x{bwd} of {n} kernels | {card}")
+    return fwd, bwd, out
+
+
+def write_release_checkpoint(path, data, extra_args=()):
+    """The seed's random weights at the reference configuration as a
+    released ``best_val_unseen``: the reference's ET layout, each entry's
+    ``state_dict`` with a torch AdamW ``optimizer`` state, the ET's dead
+    modules (``dec_action``, the vision attention's ``c`` head) and HF
+    BERT's ``position_ids``."""
+    import torch
+
+    from avdn_tpu_torch.config import parse_args
+    from avdn_tpu_torch.train.loop import build_models, init_state
+
+    args = parse_args(["--root_dir", data, "--output_dir", os.path.join(ENTRY_ROOT, "ckpt"),
+                       "--darknet_model_file",
+                       os.path.join(data, "AVDN", "pretrain_weights", "yolo_v3.cfg"),
+                       *extra_args])
+    models = build_models(args, torch.device("cpu"))
+    init_state(models, torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 9)
+    blob = {}
+    for key, model in zip(("lang_model", "vision_model", "vln_model"), models):
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-5)
+        for p in model.parameters():
+            p.grad = torch.zeros_like(p)
+        opt.step()  # the moments a released run leaves behind
+        blob[key] = {"epoch": 1, "state_dict": model.state_dict(),
+                     "optimizer": opt.state_dict()}
+    blob["lang_model"]["state_dict"]["bert.embeddings.position_ids"] = \
+        torch.arange(512)[None]
+    sd = blob["vln_model"]["state_dict"]
+    sd["dec_action.weight"] = torch.randn(args.demb, args.demb, generator=g)
+    sd["dec_action.bias"] = torch.randn(args.demb, generator=g)
+    sd["attention_layer_vision.c.0.weight"] = torch.randn(256, 768, generator=g)
+    torch.save(blob, path)
+
+
+def _entry_native(card):
+    """The host library against its plain versions, on this host: the
+    resampler on a generated 3000 × 4000 tile (bit-equal, both timed) and
+    the encoder on the demo dialogs and a non-ASCII text (equal ids and
+    masks, both timed per batch)."""
+    import importlib.util
+
+    import numpy as np
+
+    from avdn_tpu_torch.data.tokenizer import WordPieceTokenizer
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_resample", os.path.join(ROOT, "tools", "bench_resample.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    host = f"{bench.cpu_model()}, {os.cpu_count()} cores"
+    h, w = RESAMPLE_TILE
+    tile = np.random.default_rng(SEED).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    rec = bench.time_case(tile, h, int(w * 1.1547), repeats=3)
+    if not rec["bit_equal"]:
+        fail(f"[entry] native area_resize differs from data/resample.py: {rec}")
+    log(f"[entry] area_resize {h}x{w} -> {rec['dst'][0]}x{rec['dst'][1]}: native "
+        f"{rec['native_s']:.4f} s, plain (numpy) {rec['plain_s']:.4f} s "
+        f"({rec['plain_s'] / rec['native_s']:.2f}x), bit-equal; median of 3 on the host "
+        f"({host}) | {card}")
+
+    data = os.path.join(ENTRY_ROOT, "data")
+    texts = [NON_ASCII]
+    for split in ("val_seen", "val_unseen"):
+        with open(os.path.join(data, "AVDN", "annotations", f"{split}_data.json")) as f:
+            texts += [" ".join(it["pre_dialogs"]) + " " + it["instructions"]
+                      for it in json.load(f)]
+    times = {}
+    for mode, tok in (("hashed", WordPieceTokenizer.fallback()),
+                      ("vocab.txt", WordPieceTokenizer.from_vocab_file(
+                          os.path.join(data, "AVDN", "pretrain_weights", "vocab.txt")))):
+        for length in (100, 320):  # --max_instr_len and --dialog_pad
+            got = tok(texts, max_length=length, pad_to=length)
+            want = tok._encode_python(texts, length, length)
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                fail(f"[entry] native encoder differs from the Python one ({mode}, {length})")
+            native_s, _ = bench.median_s(lambda: tok(texts, length, length), 20)
+            plain_s, _ = bench.median_s(lambda: tok._encode_python(texts, length, length), 20)
+            times[f"{mode}_{length}"] = (native_s, plain_s)
+            log(f"[entry] encoder ({mode} vocabulary, {len(texts)} texts, one non-ASCII, "
+                f"max_length = pad_to = {length}): native {native_s * 1e3:.3f} ms, Python "
+                f"{plain_s * 1e3:.3f} ms per batch ({plain_s / native_s:.2f}x), equal ids and "
+                f"masks; median of 20 on the host ({host}) | {card}")
+    return dict(host=host, resample=rec, encoder=times)
+
+
+def phase_entry(card, extra_args=()):
+    """The shipped entry points, each as a user runs it, in a process of its
+    own on the card (module docstring, 6e), the independent ones side by
+    side; ``extra_args`` are appended to the recipes', ``--inference``'s and
+    ``repro_valid``'s flags. Returns ``({path: forward launches}, {path:
+    backward launches}, the host library's times)``: the launches seen in
+    the recipes' traced steps."""
+    import math
+
+    shutil.rmtree(ENTRY_ROOT, ignore_errors=True)
+    os.makedirs(ENTRY_ROOT)
+    data = write_entry_dataset()
+    pw = os.path.join(data, "AVDN", "pretrain_weights")
+    empty = os.path.join(ENTRY_ROOT, "empty")
+    os.makedirs(empty)
+    viz = os.path.join(ENTRY_ROOT, "viz")
+    runs = {}
+    try:
+        runs["et"] = start_recipe("et", data, extra_args)
+        runs["lstm"] = start_recipe("lstm", data, extra_args)
+        runs["skip"] = start_logged("repro_valid_skip", [
+            sys.executable, "tools/repro_valid_torch.py", "--root_dir", empty])
+        runs["viewer"] = start_logged("viewer", [
+            sys.executable, "tools/visualize_sub_traj_torch.py",
+            "--anno_dir", os.path.join(data, "AVDN", "annotations"),
+            "--dataset_dir", os.path.join(data, "AVDN", "train_images"),
+            "--split", "val_seen", "--out_dir", viz, "--limit", str(ENTRY_VIEWS)])
+        write_release_checkpoint(os.path.join(pw, "best_val_unseen"), data, extra_args)
+        runs["repro"] = start_logged("repro_valid", [
+            "bash", "scripts/repro_valid_torch.sh", data,
+            "--output_dir", os.path.join(ENTRY_ROOT, "repro"), *extra_args])
+
+        rc, text, _ = finish_logged(runs["skip"])
+        if rc != 0 or "SKIPPED" not in text:
+            fail(f"[entry] repro_valid_torch on an empty root exited {rc}:\n{text[-4000:]}")
+        rc, text, _ = finish_logged(runs["viewer"])
+        jpgs = [n for n in os.listdir(viz) if n.endswith(".jpg")] if os.path.isdir(viz) else []
+        if rc != 0 or len(jpgs) != ENTRY_VIEWS:
+            fail(f"[entry] the viewer exited {rc} with {len(jpgs)} images:\n{text[-4000:]}")
+        log(f"[entry] the viewer wrote {len(jpgs)} images")
+        et_fwd, et_bwd, et_out = check_recipe(card, "et", runs["et"])
+        runs["inference"] = start_logged("inference", [
+            sys.executable, "-m", "avdn_tpu_torch.cli.train_et", "--inference", "True",
+            "--resume_file", os.path.join(et_out, "ckpts", "best_val_unseen.pt"),
+            "--root_dir", data, "--output_dir", os.path.join(ENTRY_ROOT, "inference"),
+            "--max_action_len", str(T_STEPS), "--max_instr_len", "100",
+            "--darknet_model_file", os.path.join(pw, "yolo_v3.cfg"), *extra_args])
+        lstm_fwd, lstm_bwd, _ = check_recipe(card, "lstm", runs["lstm"])
+
+        rc, text, wall = finish_logged(runs["repro"])
+        rows = {}
+        for line in text.splitlines():
+            parts = line.split()
+            if len(parts) == 5 and parts[0] in ("val_seen", "val_unseen") \
+                    and parts[4] in ("ok", "DIFF"):
+                rows[parts[0], parts[1]] = float(parts[3])
+        if rc not in (0, 1) or "SKIPPED" in text or len(rows) != 16 \
+                or not all(math.isfinite(v) for v in rows.values()):
+            fail(f"[entry] repro_valid_torch.sh exited {rc} with {len(rows)} finite rows "
+                 f"(expected 16):\n{text[-6000:]}")
+        log(f"[entry] repro_valid_torch.sh on the release layout (random weights): exit "
+            f"{rc}, its table of {len(rows)} finite metrics in {wall:.1f} s (DIFF "
+            f"expected) | {card}")
+        rc, text, wall = finish_logged(runs["inference"])
+        if rc != 0 or "Imported reference checkpoint" not in text:
+            fail(f"[entry] --inference exited {rc}:\n{text[-6000:]}")
+        spl = [r["spl/val_unseen"] for r in _records(os.path.join(ENTRY_ROOT, "inference"),
+                                                      "inference") if "spl/val_unseen" in r]
+        if len(spl) != 1:
+            fail(f"[entry] --inference wrote {len(spl)} validation records")
+        log(f"[entry] --inference from the ET run's best_val_unseen.pt: val_unseen SPL "
+            f"{spl[0]:.4f} in {wall:.1f} s | {card}")
+    finally:
+        for run in runs.values():
+            stop_logged(run)
+    host = _entry_native(card)  # alone: host times on an idle host
+    return ({"entry_et_traced_step": et_fwd, "entry_lstm_traced_step": lstm_fwd},
+            {"entry_et_traced_step": et_bwd, "entry_lstm_traced_step": lstm_bwd},
+            host)
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     try:
@@ -2542,6 +2936,9 @@ def main() -> None:
     grec = phase_grad_kernel(card)
     done("kernels")
     nav, items, maps, launches = phase_slice(card)
+    from avdn_tpu_torch.utils.debug import format_memory_census
+
+    log("[slice] live tensors on the card:\n" + format_memory_census(10))
     done("slice")
     launches["serve_http"] = phase_serve_http(card, nav)
     done("serve_http")
@@ -2568,6 +2965,11 @@ def main() -> None:
     launches.update(lstm_fwd)
     train_bwd.update(lstm_bwd)
     done("lstm")
+    entry_fwd, entry_bwd, entry_host = phase_entry(card)
+    log(f"[entry] host library: {json.dumps(entry_host)}")
+    launches.update(entry_fwd)
+    train_bwd.update(entry_bwd)
+    done("entry")
     phase_render(card, nav_def, chunks)
     done("render")
     phase_parity(nav, items)

@@ -2,7 +2,9 @@
 
 * Importing every module of ``avdn_tpu_torch`` loads no ``jax``, ``flax``
   or ``avdn_tpu`` module (checked in a fresh interpreter), and neither the
-  package nor ``chip_smoke.py`` names one in an import.
+  package, its ``_torch`` tools nor ``chip_smoke.py`` names one in an
+  import; none of them, nor the ``_torch`` scripts or the C++ and CUDA
+  sources, names a module of ``avdn_tpu``, ``native/`` or ``libavdn_host``.
 * Without a card, an entry point given no ``device`` raises instead of
   running on the CPU, and ``chip_smoke.py`` exits non-zero without a result.
 * Every eval mode of the JAX package is accepted (the shipped defaults and
@@ -53,22 +55,50 @@ def test_import_loads_no_jax_or_reference_package():
                  "models.et_fast", "models.lstm", "data.annotations", "utils.logging",
                  "utils.seed", "viz", "cli.main", "cli.train_et", "cli.train_lstm",
                  "serve_http", "parallel.runtime", "parallel.collectives",
-                 "parallel.batch"):
+                 "parallel.batch", "data.native", "data.demo", "data.synthetic",
+                 "utils.flops", "utils.debug"):
         assert "avdn_tpu_torch." + name in modules
     assert [m for m in modules if _forbidden(m)] == []
 
 
+def _port_files(suffixes):
+    """``chip_smoke.py``, the ``_torch`` tools and scripts, and the package's
+    files ending in one of ``suffixes``."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for d in ("tools", "scripts"):
+        files += [os.path.join(REPO, d, n) for n in sorted(os.listdir(os.path.join(REPO, d)))
+                  if os.path.splitext(n)[0].endswith("_torch")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names if n.endswith(suffixes)]
+    return files
+
+
 def test_sources_import_nothing_of_jax():
     pattern = re.compile(r"^\s*(?:from|import)\s+(jax|flax|avdn_tpu)(?:\.|\s|$)", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")] + [
-        os.path.join(REPO, "tools", name)
-        for name in ("bench_serving_torch.py", "bn_conditioning_torch.py")]
-    for d, _, names in os.walk(PKG):
-        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    files = [f for f in _port_files((".py",)) if f.endswith(".py")]
     assert len(files) > 20
+    for name in ("bench_serving_torch.py", "bn_conditioning_torch.py",
+                 "repro_valid_torch.py", "visualize_sub_traj_torch.py"):
+        assert os.path.join(REPO, "tools", name) in files
     for path in files:
         with open(path) as f:
             assert not pattern.findall(f.read()), path
+
+
+def test_port_names_nothing_of_the_jax_package_or_its_native_library():
+    """No port module, C++ or CUDA source, ``_torch`` script or tool, nor
+    ``chip_smoke.py`` names a module of the JAX package (``avdn_tpu.``) or
+    loads anything of its native library (``native/``, ``libavdn_host``):
+    the port builds its own host library from ``csrc/avdn_host.cpp``."""
+    pattern = re.compile(r"\bavdn_tpu\.|(?<!\w)native/|libavdn_host")
+    files = _port_files((".py", ".cu", ".cpp"))
+    for name in ("run_et_haa_torch.sh", "run_lstm_haa_torch.sh", "repro_valid_torch.sh"):
+        assert os.path.join(REPO, "scripts", name) in files
+    assert os.path.join(PKG, "csrc", "avdn_host.cpp") in files
+    for path in files:
+        with open(path) as f:
+            found = pattern.findall(f.read())
+        assert not found, (path, found)
 
 
 def _cpu_only():

@@ -57,6 +57,12 @@ def preds(tmp_path_factory):
     items = json.load(open(os.path.join(root, "AVDN", "annotations",
                                         "val_seen_data.json")))[:N_ITEMS]
     init = jax_loop.init_state
+    # load the JAX package's native resampler before its bank's decode
+    # threads do: a thread that races its first load falls back to OpenCV
+    # (±1 intensity) and JAX serves other views (ROADMAP.md queue 3)
+    from avdn_tpu.data import native
+
+    assert native.available()
     with pytest.MonkeyPatch.context() as mp:
         # the eager JAX init compiles op by op; its weights are replaced by
         # the checkpoint anyway

@@ -124,5 +124,5 @@ def test_subsample_render_matches_jax():
 
 def test_band_mode_raises():
     bank, idx, quads, circ, nc = _inputs(3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="no contraction to band"):
         warp2pass.render_batch_twopass(*_torch(bank, idx, quads, circ, nc), band=True)
