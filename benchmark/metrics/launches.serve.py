@@ -1,0 +1,7 @@
+"""Kernel records a served batch in the traced window."""
+
+from harness.readers import launches_per_unit
+
+
+def read(rec):
+    return launches_per_unit(rec)

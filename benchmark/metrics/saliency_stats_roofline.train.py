@@ -1,0 +1,9 @@
+"""The fused saliency statistics kernel in the traced train steps: its summed
+byte bound over its summed device time, %."""
+
+from harness.kernels import STATS_KERNEL
+from harness.readers import roofline_pct
+
+
+def read(rec):
+    return roofline_pct(rec, STATS_KERNEL)
