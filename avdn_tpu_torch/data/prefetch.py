@@ -19,10 +19,15 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, Any
 
+from avdn_tpu_torch.utils.logging import span
+
 
 class Prefetcher:
     """Wrap ``(prepare_fn(item) for item in source)`` with a depth-``depth``
-    background queue. Exceptions in the producer re-raise at the consumer."""
+    background queue. Exceptions in the producer re-raise at the consumer.
+    Spans: ``data.prepare`` on the producer thread around each
+    ``prepare_fn``, ``data.wait`` for each time the consumer blocks on the
+    queue."""
 
     _SENTINEL = object()
 
@@ -34,7 +39,9 @@ class Prefetcher:
         def produce():
             try:
                 for item in source:
-                    self._q.put(prepare_fn(item))
+                    with span("data.prepare"):
+                        out = prepare_fn(item)
+                    self._q.put(out)
             except BaseException as e:  # surface in the consumer thread
                 self._err = e
             finally:
@@ -45,7 +52,8 @@ class Prefetcher:
 
     def __iter__(self) -> Iterator:
         while True:
-            out = self._q.get()
+            with span("data.wait"):
+                out = self._q.get()
             if out is self._SENTINEL:
                 if self._err is not None:
                     raise self._err

@@ -31,6 +31,7 @@ from avdn_tpu_torch.models.layers import (
     gelu,
     inv_sqrt,
 )
+from avdn_tpu_torch.utils.logging import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,13 +189,14 @@ class BertLanguageEncoder(nn.Module):
                                dtype=dtype, dropout=cfg.head_dropout)
 
     def forward(self, input_ids, attention_mask=None, generator=None):
-        x = self.bert.embeddings(input_ids, generator)
-        bias = None
-        if attention_mask is not None:
-            # HF convention: additive bias on padded keys (float32, as the
-            # logits it is added to)
-            bias = torch.where(attention_mask.bool(), 0.0, -1e9)[:, None, None, :]
-        for layer in self.bert.encoder.layer:
-            x = layer(x, bias, generator)
-        pooled = self.bert.pooler(x)
-        return x, self.linears(pooled, generator), pooled
+        with span("models.bert"):
+            x = self.bert.embeddings(input_ids, generator)
+            bias = None
+            if attention_mask is not None:
+                # HF convention: additive bias on padded keys (float32, as the
+                # logits it is added to)
+                bias = torch.where(attention_mask.bool(), 0.0, -1e9)[:, None, None, :]
+            for layer in self.bert.encoder.layer:
+                x = layer(x, bias, generator)
+            pooled = self.bert.pooler(x)
+            return x, self.linears(pooled, generator), pooled

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avdn_tpu_torch.parallel import batch
+from avdn_tpu_torch.utils.logging import span
 
 
 def parse_darknet_cfg(text: str) -> List[Dict[str, str]]:
@@ -366,29 +367,30 @@ class Darknet(nn.Module):
             self.module_list.append(seq)
 
     def forward(self, x):
-        x = x.permute(0, 3, 1, 2)  # NHWC views → NCHW
-        outputs = []
-        for b, mod in zip(self._blocks, self.module_list):
-            t = b["type"]
-            if t == "convolutional":
-                x = mod(x)
-            elif t == "upsample":
-                x = F.interpolate(x, scale_factor=int(b["stride"]), mode="nearest")
-            elif t == "route":
-                x = torch.cat([outputs[int(v)] for v in b["layers"].split(",")],
-                              dim=1)
-            elif t == "shortcut":
-                x = outputs[-1] + outputs[int(b["from"])]
-            elif t == "maxpool":
-                k, s = int(b["size"]), int(b["stride"])
-                # TF "SAME" padding with -inf, as flax's max_pool
-                pads = []
-                for n in (x.shape[3], x.shape[2]):
-                    total = max((-(-n // s) - 1) * s + k - n, 0)
-                    pads += [total // 2, total - total // 2]
-                x = F.max_pool2d(F.pad(x, pads, value=float("-inf")), k, s)
-            outputs.append(x)  # yolo: feature-extraction mode, identity
-        return x.flatten(2)
+        with span("models.darknet"):
+            x = x.permute(0, 3, 1, 2)  # NHWC views → NCHW
+            outputs = []
+            for b, mod in zip(self._blocks, self.module_list):
+                t = b["type"]
+                if t == "convolutional":
+                    x = mod(x)
+                elif t == "upsample":
+                    x = F.interpolate(x, scale_factor=int(b["stride"]), mode="nearest")
+                elif t == "route":
+                    x = torch.cat([outputs[int(v)] for v in b["layers"].split(",")],
+                                  dim=1)
+                elif t == "shortcut":
+                    x = outputs[-1] + outputs[int(b["from"])]
+                elif t == "maxpool":
+                    k, s = int(b["size"]), int(b["stride"])
+                    # TF "SAME" padding with -inf, as flax's max_pool
+                    pads = []
+                    for n in (x.shape[3], x.shape[2]):
+                        total = max((-(-n // s) - 1) * s + k - n, 0)
+                        pads += [total // 2, total - total // 2]
+                    x = F.max_pool2d(F.pad(x, pads, value=float("-inf")), k, s)
+                outputs.append(x)  # yolo: feature-extraction mode, identity
+            return x.flatten(2)
 
 
 def fold_darknet_params(cfg: DarknetConfig, state_dict: Dict[str, torch.Tensor],

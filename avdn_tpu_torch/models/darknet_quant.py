@@ -30,6 +30,7 @@ from torch import nn
 
 from avdn_tpu_torch.geometry.transforms import fma
 from avdn_tpu_torch.models.darknet import DarknetConfig, _conv_blocks
+from avdn_tpu_torch.utils.logging import span
 
 _QMAX = 127.0
 
@@ -118,4 +119,5 @@ class QuantDarknet(nn.Module):
         self.qparams: Dict[int, dict] = {}
 
     def forward(self, x):
-        return quant_forward(self.cfg, self.qparams, x)
+        with span("models.darknet"):
+            return quant_forward(self.cfg, self.qparams, x)

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from avdn_tpu_torch.models.layers import dense, softmax
+from avdn_tpu_torch.utils.logging import span
 
 
 def teacher_onepass(model, lang, lang_cls, frames, dirs, lengths_steps):
@@ -51,16 +52,17 @@ def teacher_onepass(model, lang, lang_cls, frames, dirs, lengths_steps):
     ``frames`` (B, T, C, 49) and ``dirs`` (B, T, 2) are the full unmasked
     history; ``lengths_steps`` (T, B) the cumulative alive counts per step.
     Returns ``action (T, B, 4)`` and the saliency heads ``(T, B, 8, 8)``."""
-    B, T = frames.shape[0], frames.shape[1]
-    L = lang.shape[1]
-    seq = model.encode(lang, lang_cls, frames, dirs, lengths_steps[-1])
-    m = lengths_steps.max(dim=1).values - 1                  # (T,)
-    vis_tok = seq.index_select(1, L + m)                      # (B, T, D)
-    dir_tok = seq.index_select(1, L + T + m)
-    # step-major, so the readout's rows are (t, b) in order
-    action, saliency = model.readout(vis_tok.transpose(0, 1).reshape(T * B, -1),
-                                     dir_tok.transpose(0, 1).reshape(T * B, -1))
-    return action.reshape(T, B, -1), saliency.reshape(T, B, *saliency.shape[1:])
+    with span("models.trunk"):
+        B, T = frames.shape[0], frames.shape[1]
+        L = lang.shape[1]
+        seq = model.encode(lang, lang_cls, frames, dirs, lengths_steps[-1])
+        m = lengths_steps.max(dim=1).values - 1                  # (T,)
+        vis_tok = seq.index_select(1, L + m)                      # (B, T, D)
+        dir_tok = seq.index_select(1, L + T + m)
+        # step-major, so the readout's rows are (t, b) in order
+        action, saliency = model.readout(vis_tok.transpose(0, 1).reshape(T * B, -1),
+                                         dir_tok.transpose(0, 1).reshape(T * B, -1))
+        return action.reshape(T, B, -1), saliency.reshape(T, B, *saliency.shape[1:])
 
 
 # --------------------------------------------------------------------------

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from avdn_tpu_torch.models.layers import Dense, Dropout, MLPHead, SoftDotAttention, dense
+from avdn_tpu_torch.utils.logging import span
 
 _PI_REF = 3.14159  # reference constant (vln_model.py:229)
 
@@ -141,17 +142,18 @@ class HAALSTM(nn.Module):
         self.fc = MLPHead(c.spatial_dim, (128, 64), relu_last=True, dtype=dtype)
 
     def forward(self, heading, im_feature, lang_cls, lang, state, generator=None):
-        h_dir, c_dir, h_vis, c_vis = state
-        pooled, _ = self.attention_layer_vision(lang_cls, im_feature)
-        h_vis, c_vis = self.vision_lstm(self.vision_dropout(pooled, generator),
-                                        (h_vis, c_vis))
-        dir_emb = self.direction_embedding(_direction_features(heading))
-        h_dir, c_dir = self.direct_lstm(dir_emb, (h_dir, c_dir))
-        joint = torch.cat([h_dir, h_vis], dim=-1)
-        attended, _ = self.attention_layer_lang(joint, lang)
-        action = self.decoder_2_action_full(attended, generator)
-        sal = self.fc(pooled, generator)
-        return (h_dir, c_dir, h_vis, c_vis), action, sal.reshape(-1, 8, 8)
+        with span("models.trunk"):
+            h_dir, c_dir, h_vis, c_vis = state
+            pooled, _ = self.attention_layer_vision(lang_cls, im_feature)
+            h_vis, c_vis = self.vision_lstm(self.vision_dropout(pooled, generator),
+                                            (h_vis, c_vis))
+            dir_emb = self.direction_embedding(_direction_features(heading))
+            h_dir, c_dir = self.direct_lstm(dir_emb, (h_dir, c_dir))
+            joint = torch.cat([h_dir, h_vis], dim=-1)
+            attended, _ = self.attention_layer_lang(joint, lang)
+            action = self.decoder_2_action_full(attended, generator)
+            sal = self.fc(pooled, generator)
+            return (h_dir, c_dir, h_vis, c_vis), action, sal.reshape(-1, 8, 8)
 
 
 class HAALSTMVisionOnly(nn.Module):
@@ -177,16 +179,17 @@ class HAALSTMVisionOnly(nn.Module):
         self.fc = MLPHead(c.spatial_dim, (128, 64), relu_last=True, dtype=dtype)
 
     def forward(self, heading, im_feature, state, generator=None):
-        h_dir, c_dir, h_vis, c_vis = state
-        query = torch.relu(self.state_query(torch.cat([h_dir, h_vis], dim=-1)))
-        pooled, _ = self.attention_layer_vision(query, im_feature)
-        h_vis, c_vis = self.vision_lstm(self.vision_dropout(pooled, generator),
-                                        (h_vis, c_vis))
-        dir_emb = self.direction_embedding(_direction_features(heading))
-        h_dir, c_dir = self.direct_lstm(dir_emb, (h_dir, c_dir))
-        action = self.decoder_2_action_full(torch.cat([h_dir, h_vis], dim=-1), generator)
-        sal = self.fc(pooled, generator)
-        return (h_dir, c_dir, h_vis, c_vis), action, sal.reshape(-1, 8, 8)
+        with span("models.trunk"):
+            h_dir, c_dir, h_vis, c_vis = state
+            query = torch.relu(self.state_query(torch.cat([h_dir, h_vis], dim=-1)))
+            pooled, _ = self.attention_layer_vision(query, im_feature)
+            h_vis, c_vis = self.vision_lstm(self.vision_dropout(pooled, generator),
+                                            (h_vis, c_vis))
+            dir_emb = self.direction_embedding(_direction_features(heading))
+            h_dir, c_dir = self.direct_lstm(dir_emb, (h_dir, c_dir))
+            action = self.decoder_2_action_full(torch.cat([h_dir, h_vis], dim=-1), generator)
+            sal = self.fc(pooled, generator)
+            return (h_dir, c_dir, h_vis, c_vis), action, sal.reshape(-1, 8, 8)
 
 
 class HAALSTMLangOnly(nn.Module):
@@ -207,7 +210,8 @@ class HAALSTMLangOnly(nn.Module):
                                              keep_f32=True)
 
     def forward(self, heading, lang, state, generator=None):
-        dir_emb = self.direction_embedding(_direction_features(heading))
-        h, cc = self.direct_lstm(dir_emb, state)
-        attended, _ = self.attention_layer_lang(h, lang)
-        return (h, cc), self.decoder_2_action_full(attended, generator)
+        with span("models.trunk"):
+            dir_emb = self.direction_embedding(_direction_features(heading))
+            h, cc = self.direct_lstm(dir_emb, state)
+            attended, _ = self.attention_layer_lang(h, lang)
+            return (h, cc), self.decoder_2_action_full(attended, generator)

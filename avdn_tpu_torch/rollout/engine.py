@@ -41,6 +41,7 @@ from avdn_tpu_torch.sim.dynamics import move_view_corners_batch
 from avdn_tpu_torch.sim.oracle import teacher_action_batch
 from avdn_tpu_torch.sim.render import render_batch
 from avdn_tpu_torch.sim.warp2pass import render_batch_twopass
+from avdn_tpu_torch.utils.logging import span
 
 _PI_REF = 3.14159
 
@@ -152,13 +153,14 @@ def render_views(map_bank, batch: EpisodeBatch, corners, cfg: RolloutConfig):
     mode: the two-pass warp, or the exact gather (subsampled with
     ``render_subsample`` > 1). Shared by the step loop and the fused
     teacher path."""
-    quad_img = _corners_to_img(corners, batch.extent, batch.lat_ratio)
-    if cfg.render_twopass:
-        return render_batch_twopass(map_bank, batch.map_idx, quad_img,
-                                    batch.circles, batch.n_circles,
-                                    crop_hw=cfg.render_crop, bf16=cfg.render_bf16)
-    return render_batch(map_bank, batch.map_idx, quad_img, batch.circles,
-                        batch.n_circles, subsample=cfg.render_subsample)
+    with span("sim.render"):
+        quad_img = _corners_to_img(corners, batch.extent, batch.lat_ratio)
+        if cfg.render_twopass:
+            return render_batch_twopass(map_bank, batch.map_idx, quad_img,
+                                        batch.circles, batch.n_circles,
+                                        crop_hw=cfg.render_crop, bf16=cfg.render_bf16)
+        return render_batch(map_bank, batch.map_idx, quad_img, batch.circles,
+                            batch.n_circles, subsample=cfg.render_subsample)
 
 
 def decode_action(action):
@@ -175,18 +177,19 @@ def dynamics_update(corners, directions, act_wp, act_alt, prog_stop, thresh,
     """One simulator transition (agent.py:733-757): the stop decision gates
     the move; items that stop keep their corners.
     Returns (stop_now, new_corners, new_dirs)."""
-    stop_now = (prog_stop > thresh) | (t == T - 1)
-    a_dir = torch.remainder(
-        (torch.atan2(act_wp[:, 0], act_wp[:, 1]) / _PI_REF + 2.0) / 2.0, 1.0)
-    half_edge = torch.linalg.vector_norm(corners[:, 0] - corners[:, 1], dim=-1) / 2.0
-    a_dist = torch.linalg.vector_norm(act_wp, dim=-1) * half_edge
-    a_alt_m = torch.round(act_alt * 360.0) + 40.0
-    moved, moved_dir = move_view_corners_batch(
-        corners, torch.round(a_dir * 360.0), a_dist, a_alt_m, extent, directions)
-    do_move = ~stop_now
-    new_corners = torch.where(do_move[:, None, None], moved, corners)
-    new_dirs = torch.where(do_move, moved_dir, directions)
-    return stop_now, new_corners, new_dirs
+    with span("sim.dynamics"):
+        stop_now = (prog_stop > thresh) | (t == T - 1)
+        a_dir = torch.remainder(
+            (torch.atan2(act_wp[:, 0], act_wp[:, 1]) / _PI_REF + 2.0) / 2.0, 1.0)
+        half_edge = torch.linalg.vector_norm(corners[:, 0] - corners[:, 1], dim=-1) / 2.0
+        a_dist = torch.linalg.vector_norm(act_wp, dim=-1) * half_edge
+        a_alt_m = torch.round(act_alt * 360.0) + 40.0
+        moved, moved_dir = move_view_corners_batch(
+            corners, torch.round(a_dir * 360.0), a_dist, a_alt_m, extent, directions)
+        do_move = ~stop_now
+        new_corners = torch.where(do_move[:, None, None], moved, corners)
+        new_dirs = torch.where(do_move, moved_dir, directions)
+        return stop_now, new_corners, new_dirs
 
 
 def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
@@ -201,116 +204,118 @@ def rollout(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
     Returns ``(RolloutOutputs, final model_state)``; with ``cfg.train`` the
     loss carries the autograd graph of the model's outputs.
     """
-    B = batch.start_corners.shape[0]
-    T = cfg.max_action_len
-    dev = batch.start_corners.device
-    mean = torch.tensor(RGB_MEAN, dtype=torch.float32, device=dev)
-    std = torch.tensor(RGB_STD, dtype=torch.float32, device=dev)
-    zeros = torch.zeros((B,), dtype=torch.float32, device=dev)
+    with span("rollout"):
+        B = batch.start_corners.shape[0]
+        T = cfg.max_action_len
+        dev = batch.start_corners.device
+        mean = torch.tensor(RGB_MEAN, dtype=torch.float32, device=dev)
+        std = torch.tensor(RGB_STD, dtype=torch.float32, device=dev)
+        zeros = torch.zeros((B,), dtype=torch.float32, device=dev)
 
-    corners = batch.start_corners.float()
-    directions = batch.start_dir.float()
-    ended = torch.zeros((B,), dtype=torch.bool, device=dev)
-    loss = torch.zeros((), dtype=torch.float32, device=dev)
-    model_state = init_model_state
-    ys = []
-    for t in range(T):
-        any_alive = ~batch_all(ended)
+        corners = batch.start_corners.float()
+        directions = batch.start_dir.float()
+        ended = torch.zeros((B,), dtype=torch.bool, device=dev)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        model_state = init_model_state
+        ys = []
+        for t in range(T):
+            any_alive = ~batch_all(ended)
 
-        # ---- render current views on device ----
-        with torch.no_grad():
-            views, gt_sal = render_views(map_bank, batch, corners, cfg)
-        # input normalisation — the /std is folded into the first conv when
-        # the eval tower is BN-folded (fold_darknet_params); the mean
-        # subtraction stays here (the conv zero-pads the NORMALISED tensor)
-        x = views - mean if cfg.fused_input_norm else (views - mean) / std
-
-        rad = directions / 180.0 * _PI_REF
-        dir_feat = torch.stack([torch.sin(rad), torch.cos(rad)], dim=-1)
-        if cfg.no_direction:
-            dir_feat = torch.zeros_like(dir_feat)
-
-        # ---- model ----
-        model_state, action, sal_head = model_step(model_state, x, dir_feat, t, ended)
-        action = action.float()
-        # losses see the RAW head outputs (agent.py:663-669); the decode
-        # only feeds the trajectory records and student feedback
-        pred_wp, pred_alt, pred_prog = action[:, 0:2], action[:, 2], action[:, 3]
-        wp_norm, alt_clip, prog_clip = decode_action(action)
-
-        # ---- the saliency maps and their statistics (the CUDA kernels on
-        # the card: the fused forward, and under autograd the head's
-        # gradient) ----
-        if cfg.compute_losses or cfg.collect_ha_metrics:
-            pred_sal, neg_nss, nss_valid, ha_prec, ha_rec = saliency_head_reductions(
-                sal_head, gt_sal, nss_r=cfg.nss_r)
-        else:
-            neg_nss, ha_prec, ha_rec = zeros, zeros, zeros
-            nss_valid = torch.zeros((B,), dtype=torch.bool, device=dev)
-            if cfg.collect_saliency:
-                pred_sal = saliency_upsample(sal_head.detach(), gt_sal.shape[-1]).float()
-
-        # ---- oracle + losses ----
-        if cfg.compute_losses:
+            # ---- render current views on device ----
             with torch.no_grad():
-                oracle = teacher_action_batch(corners, ended, batch.gt_corners,
-                                              batch.gt_len, cfg.teacher_forcing)
-            gt_wp = oracle["waypoint_ratio"]
-            gt_alt = oracle["altitude"]
-            gt_prog = oracle["progress"]
-            heading_eps = 1e-5 * batch_rand((B,), generator, dev)
-            ml = step_losses(pred_wp, pred_alt, pred_prog, gt_wp, gt_alt,
-                             gt_prog, heading_eps)
-            if cfg.nss_w:
-                ml = ml + cfg.nss_w * torch.where(nss_valid, neg_nss, 0.0).sum()
-            loss = loss + torch.where(any_alive, ml, 0.0)
-        else:
-            gt_wp = torch.zeros((B, 2), dtype=torch.float32, device=dev)
-            gt_alt, gt_prog = zeros, zeros
+                views, gt_sal = render_views(map_bank, batch, corners, cfg)
+            # input normalisation — the /std is folded into the first conv when
+            # the eval tower is BN-folded (fold_darknet_params); the mean
+            # subtraction stays here (the conv zero-pads the NORMALISED tensor)
+            x = views - mean if cfg.fused_input_norm else (views - mean) / std
 
-        # ---- feedback + stop decision (detached: the simulator is not part
-        # of the reference's autodiff graph, agent.py:724-755) ----
-        if cfg.teacher_forcing:
-            act_wp, act_alt, prog_stop = gt_wp, gt_alt, gt_prog
-            thresh = STOP_THRESHOLD
-        else:
-            act_wp, act_alt, prog_stop = wp_norm, alt_clip, prog_clip
-            thresh = cfg.stop_threshold
-        with torch.no_grad():
-            stop_now, new_corners, new_dirs = dynamics_update(
-                corners, directions, act_wp.detach(), act_alt.detach(),
-                prog_stop.detach(), thresh, t, T, batch.extent)
-        ended_next = ended | stop_now
+            rad = directions / 180.0 * _PI_REF
+            dir_feat = torch.stack([torch.sin(rad), torch.cos(rad)], dim=-1)
+            if cfg.no_direction:
+                dir_feat = torch.zeros_like(dir_feat)
 
-        y = dict(
-            alive_pre=~ended,
-            alive_post=~ended_next,
-            actions_wp=wp_norm,
-            actions_alt=alt_clip,
-            pred_progress=pred_prog,
-            gt_wp=gt_wp,
-            gt_alt=gt_alt,
-            gt_progress=gt_prog,
-            corners=new_corners,
-            directions=new_dirs,
-            ha_precision=ha_prec,
-            ha_recall=ha_rec,
-            ha_nss=neg_nss,
-            # the reference records HA metrics for every item while the
-            # episode loop is still running, ended or not (agent.py:673-691)
-            ha_valid=nss_valid & any_alive & cfg.collect_ha_metrics,
-        )
-        if cfg.collect_views:
-            y["views"] = views
-        if cfg.collect_saliency:
-            # per-step attention debug dumps (agent.py:694-706)
-            y["pred_sal"] = pred_sal
-            y["gt_sal"] = gt_sal
-        ys.append(y)
-        corners, directions, ended = new_corners, new_dirs, ended_next
+            # ---- model ----
+            model_state, action, sal_head = model_step(model_state, x, dir_feat, t, ended)
+            action = action.float()
+            # losses see the RAW head outputs (agent.py:663-669); the decode
+            # only feeds the trajectory records and student feedback
+            pred_wp, pred_alt, pred_prog = action[:, 0:2], action[:, 2], action[:, 3]
+            wp_norm, alt_clip, prog_clip = decode_action(action)
 
-    stacked = {k: torch.stack([y[k] for y in ys]) for k in ys[0]}
-    return RolloutOutputs(loss=loss, **stacked), model_state
+            # ---- the saliency maps and their statistics (the CUDA kernels on
+            # the card: the fused forward, and under autograd the head's
+            # gradient) ----
+            if cfg.compute_losses or cfg.collect_ha_metrics:
+                pred_sal, neg_nss, nss_valid, ha_prec, ha_rec = saliency_head_reductions(
+                    sal_head, gt_sal, nss_r=cfg.nss_r)
+            else:
+                neg_nss, ha_prec, ha_rec = zeros, zeros, zeros
+                nss_valid = torch.zeros((B,), dtype=torch.bool, device=dev)
+                if cfg.collect_saliency:
+                    pred_sal = saliency_upsample(sal_head.detach(),
+                                                 gt_sal.shape[-1]).float()
+
+            # ---- oracle + losses ----
+            if cfg.compute_losses:
+                with torch.no_grad():
+                    oracle = teacher_action_batch(corners, ended, batch.gt_corners,
+                                                  batch.gt_len, cfg.teacher_forcing)
+                gt_wp = oracle["waypoint_ratio"]
+                gt_alt = oracle["altitude"]
+                gt_prog = oracle["progress"]
+                heading_eps = 1e-5 * batch_rand((B,), generator, dev)
+                ml = step_losses(pred_wp, pred_alt, pred_prog, gt_wp, gt_alt,
+                                 gt_prog, heading_eps)
+                if cfg.nss_w:
+                    ml = ml + cfg.nss_w * torch.where(nss_valid, neg_nss, 0.0).sum()
+                loss = loss + torch.where(any_alive, ml, 0.0)
+            else:
+                gt_wp = torch.zeros((B, 2), dtype=torch.float32, device=dev)
+                gt_alt, gt_prog = zeros, zeros
+
+            # ---- feedback + stop decision (detached: the simulator is not part
+            # of the reference's autodiff graph, agent.py:724-755) ----
+            if cfg.teacher_forcing:
+                act_wp, act_alt, prog_stop = gt_wp, gt_alt, gt_prog
+                thresh = STOP_THRESHOLD
+            else:
+                act_wp, act_alt, prog_stop = wp_norm, alt_clip, prog_clip
+                thresh = cfg.stop_threshold
+            with torch.no_grad():
+                stop_now, new_corners, new_dirs = dynamics_update(
+                    corners, directions, act_wp.detach(), act_alt.detach(),
+                    prog_stop.detach(), thresh, t, T, batch.extent)
+            ended_next = ended | stop_now
+
+            y = dict(
+                alive_pre=~ended,
+                alive_post=~ended_next,
+                actions_wp=wp_norm,
+                actions_alt=alt_clip,
+                pred_progress=pred_prog,
+                gt_wp=gt_wp,
+                gt_alt=gt_alt,
+                gt_progress=gt_prog,
+                corners=new_corners,
+                directions=new_dirs,
+                ha_precision=ha_prec,
+                ha_recall=ha_rec,
+                ha_nss=neg_nss,
+                # the reference records HA metrics for every item while the
+                # episode loop is still running, ended or not (agent.py:673-691)
+                ha_valid=nss_valid & any_alive & cfg.collect_ha_metrics,
+            )
+            if cfg.collect_views:
+                y["views"] = views
+            if cfg.collect_saliency:
+                # per-step attention debug dumps (agent.py:694-706)
+                y["pred_sal"] = pred_sal
+                y["gt_sal"] = gt_sal
+            ys.append(y)
+            corners, directions, ended = new_corners, new_dirs, ended_next
+
+        stacked = {k: torch.stack([y[k] for y in ys]) for k in ys[0]}
+        return RolloutOutputs(loss=loss, **stacked), model_state
 
 
 def make_et_step(darknet_model, et_model, batch: EpisodeBatch, cfg: RolloutConfig,

@@ -53,6 +53,7 @@ from avdn_tpu_torch.rollout.engine import (
     render_views,
 )
 from avdn_tpu_torch.sim.oracle import teacher_action_batch
+from avdn_tpu_torch.utils.logging import span
 
 
 def teacher_geometry(batch: EpisodeBatch, cfg: RolloutConfig,
@@ -181,83 +182,86 @@ def rollout_teacher_fused(*, map_bank, batch: EpisodeBatch, cfg: RolloutConfig,
     teacher-forcing config and generator. With ``cfg.train`` the loss carries
     the autograd graph of the model's outputs and ``generator`` also draws
     the dropout masks."""
-    if not cfg.teacher_forcing:
-        raise ValueError("the fused rollout is teacher forcing only")
-    check_family(family)
-    B = batch.start_corners.shape[0]
-    T = cfg.max_action_len
-    dev = batch.start_corners.device
+    with span("rollout"):
+        if not cfg.teacher_forcing:
+            raise ValueError("the fused rollout is teacher forcing only")
+        check_family(family)
+        B = batch.start_corners.shape[0]
+        T = cfg.max_action_len
+        dev = batch.start_corners.device
 
-    with torch.no_grad():  # the simulator is outside autograd
-        geo = teacher_geometry(batch, cfg, generator)
-        # ---- one render of every (t, b) view ----
-        views, gt_sal = _render_all(map_bank, batch, geo["corners_pre"], cfg)
-    mean = torch.tensor(RGB_MEAN, dtype=torch.float32, device=dev)
-    std = torch.tensor(RGB_STD, dtype=torch.float32, device=dev)
-    x = views - mean if cfg.fused_input_norm else (views - mean) / std
+        with torch.no_grad():  # the simulator is outside autograd
+            geo = teacher_geometry(batch, cfg, generator)
+            # ---- one render of every (t, b) view ----
+            views, gt_sal = _render_all(map_bank, batch, geo["corners_pre"], cfg)
+        mean = torch.tensor(RGB_MEAN, dtype=torch.float32, device=dev)
+        std = torch.tensor(RGB_STD, dtype=torch.float32, device=dev)
+        x = views - mean if cfg.fused_input_norm else (views - mean) / std
 
-    rad = geo["dirs_pre"] / 180.0 * _PI_REF
-    dir_feat = torch.stack([torch.sin(rad), torch.cos(rad)], dim=-1)  # (T, B, 2)
-    if cfg.no_direction:
-        dir_feat = torch.zeros_like(dir_feat)
+        rad = geo["dirs_pre"] / 180.0 * _PI_REF
+        dir_feat = torch.stack([torch.sin(rad), torch.cos(rad)], dim=-1)  # (T, B, 2)
+        if cfg.no_direction:
+            dir_feat = torch.zeros_like(dir_feat)
 
-    # ---- towers, time-batched ----
-    feats = _tower_features(darknet_model, x, cfg)
-    if cfg.language_only:
-        feats = torch.zeros_like(feats)
-    if family == "et":
-        actions, sal_head = _et_actions(vln_model, batch, cfg, feats, dir_feat,
-                                        geo["ended_pre"], generator)
-    else:
-        actions, sal_head = _lstm_actions(vln_model, batch, feats, dir_feat, generator)
-    actions = actions.float()
-    sal_head = sal_head.reshape(T * B, *sal_head.shape[2:])
-    gt_flat = gt_sal.reshape(T * B, *gt_sal.shape[2:])
-    wp_norm, alt_clip, _ = decode_action(actions.reshape(T * B, 4))
+        # ---- towers, time-batched ----
+        feats = _tower_features(darknet_model, x, cfg)
+        if cfg.language_only:
+            feats = torch.zeros_like(feats)
+        if family == "et":
+            actions, sal_head = _et_actions(vln_model, batch, cfg, feats, dir_feat,
+                                            geo["ended_pre"], generator)
+        else:
+            actions, sal_head = _lstm_actions(vln_model, batch, feats, dir_feat, generator)
+        actions = actions.float()
+        sal_head = sal_head.reshape(T * B, *sal_head.shape[2:])
+        gt_flat = gt_sal.reshape(T * B, *gt_sal.shape[2:])
+        wp_norm, alt_clip, _ = decode_action(actions.reshape(T * B, 4))
 
-    # ---- HA statistics: one saliency-kernel launch over the T·B maps (and
-    # under autograd one launch of the head's gradient) ----
-    pred_sal = None
-    if cfg.compute_losses or cfg.collect_ha_metrics:
-        pred_sal, *red = saliency_head_reductions(sal_head, gt_flat, nss_r=cfg.nss_r)
-        neg_nss, nss_valid, ha_prec, ha_rec = (r.reshape(T, B) for r in red)
-    else:
-        neg_nss = ha_prec = ha_rec = torch.zeros((T, B), dtype=torch.float32, device=dev)
-        nss_valid = torch.zeros((T, B), dtype=torch.bool, device=dev)
-    if cfg.collect_saliency:
-        if pred_sal is None:
-            pred_sal = saliency_upsample(sal_head.detach(), gt_flat.shape[-1]).float()
-        pred_sal = pred_sal.reshape(T, B, *pred_sal.shape[1:])
+        # ---- HA statistics: one saliency-kernel launch over the T·B maps (and
+        # under autograd one launch of the head's gradient) ----
+        pred_sal = None
+        if cfg.compute_losses or cfg.collect_ha_metrics:
+            pred_sal, *red = saliency_head_reductions(sal_head, gt_flat, nss_r=cfg.nss_r)
+            neg_nss, nss_valid, ha_prec, ha_rec = (r.reshape(T, B) for r in red)
+        else:
+            neg_nss = ha_prec = ha_rec = torch.zeros((T, B), dtype=torch.float32,
+                                                     device=dev)
+            nss_valid = torch.zeros((T, B), dtype=torch.bool, device=dev)
+        if cfg.collect_saliency:
+            if pred_sal is None:
+                pred_sal = saliency_upsample(sal_head.detach(), gt_flat.shape[-1]).float()
+            pred_sal = pred_sal.reshape(T, B, *pred_sal.shape[1:])
 
-    # ---- losses, summed over the steps in the step loop's order ----
-    loss = torch.zeros((), dtype=torch.float32, device=dev)
-    if cfg.compute_losses:
-        nss_term = torch.where(nss_valid, neg_nss, 0.0).sum(dim=1) if cfg.nss_w else None
-        for t in range(T):
-            ml = step_losses(actions[t, :, 0:2], actions[t, :, 2], actions[t, :, 3],
-                             geo["gt_wp"][t], geo["gt_alt"][t], geo["gt_prog"][t],
-                             geo["heading_eps"][t])
-            if nss_term is not None:
-                ml = ml + cfg.nss_w * nss_term[t]
-            loss = loss + torch.where(geo["any_alive"][t], ml, 0.0)
+        # ---- losses, summed over the steps in the step loop's order ----
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        if cfg.compute_losses:
+            nss_term = (torch.where(nss_valid, neg_nss, 0.0).sum(dim=1) if cfg.nss_w
+                        else None)
+            for t in range(T):
+                ml = step_losses(actions[t, :, 0:2], actions[t, :, 2], actions[t, :, 3],
+                                 geo["gt_wp"][t], geo["gt_alt"][t], geo["gt_prog"][t],
+                                 geo["heading_eps"][t])
+                if nss_term is not None:
+                    ml = ml + cfg.nss_w * nss_term[t]
+                loss = loss + torch.where(geo["any_alive"][t], ml, 0.0)
 
-    return RolloutOutputs(
-        alive_pre=~geo["ended_pre"],
-        alive_post=~geo["ended_post"],
-        actions_wp=wp_norm.reshape(T, B, 2),
-        actions_alt=alt_clip.reshape(T, B),
-        pred_progress=actions[..., 3],
-        gt_wp=geo["gt_wp"],
-        gt_alt=geo["gt_alt"],
-        gt_progress=geo["gt_prog"],
-        corners=geo["corners_post"],
-        directions=geo["dirs_post"],
-        ha_precision=ha_prec,
-        ha_recall=ha_rec,
-        ha_nss=neg_nss,
-        ha_valid=nss_valid & geo["any_alive"][:, None] & cfg.collect_ha_metrics,
-        loss=loss,
-        views=views if cfg.collect_views else None,
-        pred_sal=pred_sal if cfg.collect_saliency else None,
-        gt_sal=gt_sal if cfg.collect_saliency else None,
-    )
+        return RolloutOutputs(
+            alive_pre=~geo["ended_pre"],
+            alive_post=~geo["ended_post"],
+            actions_wp=wp_norm.reshape(T, B, 2),
+            actions_alt=alt_clip.reshape(T, B),
+            pred_progress=actions[..., 3],
+            gt_wp=geo["gt_wp"],
+            gt_alt=geo["gt_alt"],
+            gt_progress=geo["gt_prog"],
+            corners=geo["corners_post"],
+            directions=geo["dirs_post"],
+            ha_precision=ha_prec,
+            ha_recall=ha_rec,
+            ha_nss=neg_nss,
+            ha_valid=nss_valid & geo["any_alive"][:, None] & cfg.collect_ha_metrics,
+            loss=loss,
+            views=views if cfg.collect_views else None,
+            pred_sal=pred_sal if cfg.collect_saliency else None,
+            gt_sal=gt_sal if cfg.collect_saliency else None,
+        )

@@ -66,7 +66,8 @@ from avdn_tpu_torch.train.step import (
     make_eval_rollout,
     make_train_step,
 )
-from avdn_tpu_torch.utils.logging import MetricWriter, PhaseTimer
+from avdn_tpu_torch.utils import logging as spans
+from avdn_tpu_torch.utils.logging import MetricWriter, PhaseTimer, span
 from avdn_tpu_torch.utils.preemption import PreemptionGuard
 from avdn_tpu_torch.utils.seed import set_random_seed
 from avdn_tpu_torch.viz import save_debug_overlays, save_saliency_heatmaps
@@ -319,16 +320,35 @@ def _check_dataset(args: Args, splits):
 def profile_trace(log_dir: str):
     """Trace the enclosed block with ``torch.profiler`` (host ops, and the
     card's kernels where there is one) into ``<log_dir>/trace.json``, a
-    Chrome trace."""
+    Chrome trace, with the program's spans (``utils/logging.py``) recorded
+    over the block and merged in as ``"X"`` events on the trace's clock and
+    threads (category ``span``), so the layers show over the ops."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    spans.drain()
+    spans.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield
+    finally:
+        spans.disable()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    base_ns = int(trace.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    trace["traceEvents"] += [
+        {"ph": "X", "cat": "span", "name": s.name, "pid": pid, "tid": s.thread,
+         "ts": (s.start_ns - base_ns) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {"id": s.id, "parent": s.parent, "root": s.root}}
+        for s in spans.drain()]
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def _eval_env(args, env, eval_fn, tokenizer, bank, bcfg, device, runtime,
@@ -360,8 +380,10 @@ def _eval_env(args, env, eval_fn, tokenizer, bank, bcfg, device, runtime,
         trace = (profile_trace(profile_dir) if profile_dir and bi == 0
                  else contextlib.nullcontext())
         with trace:
-            out = eval_fn(bank_arr, batch, gen).cpu()
-        preds.update(assemble_trajectories(out, meta))
+            out = eval_fn(bank_arr, batch, gen)
+            with span("valid.metrics"):  # the copy waits for the rollout
+                out = out.cpu()
+                preds.update(assemble_trajectories(out, meta))
         if on_batch is not None:
             on_batch(out, meta)
     return merge_prediction_dicts(preds) if runtime.multiprocess else preds
@@ -420,51 +442,56 @@ def run_validation(args, val_envs, eval_student, eval_teacher, tokenizer, bank,
     evals and the debug images (the heatmaps inside the HA eval's time).
     In a multi-process run every process evaluates its shards and computes
     the same metrics from the merged predictions; the Eval.ai file is
-    process 0's to write."""
+    process 0's to write. The pass is the span ``valid.pass``, the evals
+    ``valid.nav`` and ``valid.ha``, the metrics and the copies of the
+    rollouts to the host ``valid.metrics``."""
     timers = timers or PhaseTimer()
-    results = {}
-    loss_str = f"iter {step}"
-    for ei, (env_name, env) in enumerate(val_envs.items()):
-        fn = eval_student
-        if "test" in env_name and eval_student_test is not None:
-            fn = eval_student_test
-        with timers("nav_eval"):
-            preds = _eval_env(args, env, fn, tokenizer, bank, bcfg, device, runtime,
-                              profile_dir=profile_dir if ei == 0 else None)
-        if "test_unseen" in env_name:
-            if runtime.is_main:
-                np.save("./output_test_result.npy", preds, allow_pickle=True)
-                print("inference_result on test is generated.")
-            continue
-        if args.inference:
-            with timers("debug_images"):
-                _write_debug_images(args, env, preds, env_name)
-        avg, _ = eval_metrics(preds)
-        results[env_name] = avg
-        loss_str += f", {env_name} " + "".join(
-            f", {k}: {v:.2f}" for k, v in avg.items())
-        writer.scalars(step, {f"{k}/{env_name}": v for k, v in avg.items()})
-    for env_name, env in val_envs.items():
-        if "test_unseen" in env_name:
-            continue
-        teacher_fn, on_batch = eval_teacher, None
-        if args.inference and eval_teacher_debug is not None:
-            teacher_fn = eval_teacher_debug
+    with span("valid.pass"):
+        results = {}
+        loss_str = f"iter {step}"
+        for ei, (env_name, env) in enumerate(val_envs.items()):
+            fn = eval_student
+            if "test" in env_name and eval_student_test is not None:
+                fn = eval_student_test
+            with timers("nav_eval", span="valid.nav"):
+                preds = _eval_env(args, env, fn, tokenizer, bank, bcfg, device, runtime,
+                                  profile_dir=profile_dir if ei == 0 else None)
+            if "test_unseen" in env_name:
+                if runtime.is_main:
+                    np.save("./output_test_result.npy", preds, allow_pickle=True)
+                    print("inference_result on test is generated.")
+                continue
+            if args.inference:
+                with timers("debug_images"):
+                    _write_debug_images(args, env, preds, env_name)
+            with span("valid.metrics"):
+                avg, _ = eval_metrics(preds)
+            results[env_name] = avg
+            loss_str += f", {env_name} " + "".join(
+                f", {k}: {v:.2f}" for k, v in avg.items())
+            writer.scalars(step, {f"{k}/{env_name}": v for k, v in avg.items()})
+        for env_name, env in val_envs.items():
+            if "test_unseen" in env_name:
+                continue
+            teacher_fn, on_batch = eval_teacher, None
+            if args.inference and eval_teacher_debug is not None:
+                teacher_fn = eval_teacher_debug
 
-            def on_batch(out, meta, _env=env_name):
-                with timers("debug_images"):  # inside the HA eval's wall
-                    _write_saliency_debug(args, _env, out, meta)
+                def on_batch(out, meta, _env=env_name):
+                    with timers("debug_images"):  # inside the HA eval's wall
+                        _write_saliency_debug(args, _env, out, meta)
 
-        with timers("ha_eval"):
-            preds = _eval_env(args, env, teacher_fn, tokenizer, bank, bcfg,
-                              device, runtime, on_batch=on_batch)
-        ha_avg, _ = eval_metrics(preds, human_att_eval=True)
-        results[env_name + "_human_att"] = ha_avg
-        loss_str += f", {env_name}_human_att " + "".join(
-            f", {k}: {v:.2f}" for k, v in ha_avg.items())
-        writer.scalars(step, {f"{k}/{env_name}_ha": v for k, v in ha_avg.items()})
-    writer.text(loss_str)
-    return results
+            with timers("ha_eval", span="valid.ha"):
+                preds = _eval_env(args, env, teacher_fn, tokenizer, bank, bcfg,
+                                  device, runtime, on_batch=on_batch)
+            with span("valid.metrics"):
+                ha_avg, _ = eval_metrics(preds, human_att_eval=True)
+            results[env_name + "_human_att"] = ha_avg
+            loss_str += f", {env_name}_human_att " + "".join(
+                f", {k}: {v:.2f}" for k, v in ha_avg.items())
+            writer.scalars(step, {f"{k}/{env_name}_ha": v for k, v in ha_avg.items()})
+        writer.text(loss_str)
+        return results
 
 
 def _log_dir(args: Args, runtime: ParallelRuntime) -> str:

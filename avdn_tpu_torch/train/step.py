@@ -50,6 +50,7 @@ from avdn_tpu_torch.rollout.engine import (
 )
 from avdn_tpu_torch.rollout.fused import rollout_teacher_fused
 from avdn_tpu_torch.train.optim import Adam, global_norm
+from avdn_tpu_torch.utils.logging import span
 
 
 @dataclasses.dataclass
@@ -240,7 +241,8 @@ def make_loss_fn(cfg: TrainConfig, bert_model, darknet_model, vln_model) -> Call
     models = (darknet_model, vln_model)
 
     def loss_fn(batch: TrainBatch, map_bank, generator, loss_norm: int):
-        bert_out = _encode_language(bert_model, batch, cfg, generator)
+        with span("train.language"):
+            bert_out = _encode_language(bert_model, batch, cfg, generator)
         if cfg.feedback == "teacher":
             roll = cfg.rollout_cfg(teacher=True, nss_w=cfg.nss_w, train=True)
             out = _run_family_rollout(cfg, roll, models, bert_out, batch, map_bank,
@@ -303,34 +305,38 @@ def make_train_step(cfg: TrainConfig, bert_model, darknet_model, vln_model,
 
     def train_step(state: TrainState, map_bank, batch: TrainBatch,
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        for m in state.models():
-            m.train()
-            m.zero_grad(set_to_none=True)
-        K = cfg.grad_accum
-        full_B = batch.ids_instr.shape[0]
-        if full_B % K != 0:
-            raise ValueError(f"--grad_accum {K} must evenly divide batch_size {full_B}")
-        loss = torch.zeros((), device=batch.ids_instr.device)
-        with global_batch(group) if group is not None else contextlib.nullcontext():
-            for k in range(K):
-                # each micro loss over the FULL batch size: the summed grads
-                # are the full batch's; BatchNorm's running statistics chain
-                # in order
-                mb = batch if K == 1 else _micro_batch(batch, k, K)
-                micro = loss_fn(mb, map_bank, generator, full_B)
-                micro.backward()
-                loss = loss + micro.detach()
-        grads = [[torch.zeros_like(p) if p.grad is None else p.grad
-                  for p in opt.params] for opt in state.optimizers()]
-        if group is not None:  # the mean gradient (and loss) over the ranks
-            _mean_over_ranks([g for gs in grads for g in gs] + [loss.reshape(1)], group)
-        norms = [global_norm(g) for g in grads]
-        for opt, g, norm in zip(state.optimizers(), grads, norms):
-            opt.step(g, norm)
-        for m in state.models():
-            m.zero_grad(set_to_none=True)
-        state.step += 1
-        return {"loss": loss, "grad_norm_vln": norms[2], "grad_norm_bert": norms[0]}
+        with span("train.step"):
+            for m in state.models():
+                m.train()
+                m.zero_grad(set_to_none=True)
+            K = cfg.grad_accum
+            full_B = batch.ids_instr.shape[0]
+            if full_B % K != 0:
+                raise ValueError(f"--grad_accum {K} must evenly divide batch_size {full_B}")
+            loss = torch.zeros((), device=batch.ids_instr.device)
+            with global_batch(group) if group is not None else contextlib.nullcontext():
+                for k in range(K):
+                    # each micro loss over the FULL batch size: the summed grads
+                    # are the full batch's; BatchNorm's running statistics chain
+                    # in order
+                    mb = batch if K == 1 else _micro_batch(batch, k, K)
+                    micro = loss_fn(mb, map_bank, generator, full_B)
+                    with span("train.backward"):
+                        micro.backward()
+                    loss = loss + micro.detach()
+            with span("train.optim"):
+                grads = [[torch.zeros_like(p) if p.grad is None else p.grad
+                          for p in opt.params] for opt in state.optimizers()]
+                if group is not None:  # the mean gradient (and loss) over the ranks
+                    _mean_over_ranks([g for gs in grads for g in gs] + [loss.reshape(1)],
+                                     group)
+                norms = [global_norm(g) for g in grads]
+                for opt, g, norm in zip(state.optimizers(), grads, norms):
+                    opt.step(g, norm)
+                for m in state.models():
+                    m.zero_grad(set_to_none=True)
+            state.step += 1
+            return {"loss": loss, "grad_norm_vln": norms[2], "grad_norm_bert": norms[0]}
 
     return train_step
 

@@ -139,9 +139,13 @@ def test_valid_submit_writes_eval_ai_file(golden_run):
     """``--submit`` adds test_unseen and writes its predictions, the Eval.ai
     ``output_test_result.npy``, into the working directory (without
     ``--prefetch``); ``--profile_dir`` writes a Chrome trace of the first
-    batch. (The shared exact run is that run, ``tests/torch_shared.py``.)"""
+    batch, the program's spans merged in over its ops (the oracle's among
+    them). (The shared exact run is that run, ``tests/torch_shared.py``.)"""
     run_dir = golden_run["run_dir"]
-    assert json.load(open(os.path.join(run_dir, "trace", "trace.json")))["traceEvents"]
+    events = json.load(open(os.path.join(run_dir, "trace", "trace.json")))["traceEvents"]
+    assert events
+    oracle = [e for e in events if e.get("name") == "sim.oracle" and e.get("ph") == "X"]
+    assert oracle and all(e["cat"] == "span" and e["dur"] > 0 for e in oracle)
     preds = np.load(os.path.join(run_dir, "output_test_result.npy"),
                     allow_pickle=True).item()
     assert len(preds) == 16
