@@ -21,7 +21,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
              item, one launch per backward and no other kernel, no upsample
              backward and no full-resolution buffer in it), with device
              times from torch.profiler, cold (held against the HBM byte
-             bound) and hot in L2.
+             bound) and hot in L2; then ``oracle``: the teacher oracle's
+             kernel (``csrc/teacher_oracle.cu``) bit-equal to
+             ``teacher_action_batch_plain`` at B = 4, 16 and 40 (max_gt_len
+             12, both feedback modes), one launch a call, its device time
+             cold and hot beside its byte bound, and the plain version's
+             kernels and wall time a call.
 4. slice   — the ET-HAA inference path at full width (BERT-base 12×768,
              Darknet-53 at 224 px, HAA trunk 2×768, T = 10, a 4096 px
              8-slot map bank), fp32 and the exact render, random weights
@@ -297,6 +302,72 @@ def saliency_inputs(B: int, device):
     pred[1] = 0.25
     gt[2] = 0.0
     return pred.to(device), gt.to(device)
+
+
+def oracle_inputs(B: int, max_t: int, seed: int, device):
+    """Seeded teacher-oracle inputs at the rollout's scale (GPS offsets of a
+    few 1e-3 degrees, views of 40-400 m): (corners (B, 4, 2), ended (B,),
+    gt_corners (B, max_t, 4, 2), gt_len (B,) int64). Each GT path is a walk
+    of views padded with zeros, as the batcher pads it (a quarter of the
+    items with other views instead), its goal sometimes with coincident
+    corners. Each current view is, by item: near a GT step; the goal
+    itself; a GT step itself; anywhere on the map; four coincident or
+    collinear corners; a view a few centimetres wide (the axis solve near
+    singular); or far from the path (no intersection, the polyline missing
+    the view); a fifth of them in another corner order. A fifth of the
+    items have ended."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def views(center, edge_deg, heading):
+        base = np.array([[1, -1], [1, 1], [-1, 1], [-1, -1]], np.float64)
+        c, s = np.cos(heading)[..., None], np.sin(heading)[..., None]
+        x, y = base[:, 0], base[:, 1]
+        q = np.stack([x * c - y * s, x * s + y * c], -1) * (edge_deg / 2)[..., None, None]
+        return q + center[..., None, :]
+
+    gt_len = rng.integers(1, max_t + 1, B)
+    walk = rng.normal(0, 4e-4, (B, max_t, 2))
+    walk[:, 0] = 0
+    centers = rng.uniform(0.002, 0.008, (B, 1, 2)) + np.cumsum(walk, 1)
+    edge = np.clip(rng.uniform(40, 400, (B, 1)) * np.exp(np.cumsum(
+        rng.normal(0, 0.1, (B, max_t)), 1)), 40, 400) / DEG_TO_M
+    heading = rng.uniform(0, 2 * np.pi, (B, 1)) + np.cumsum(rng.normal(0, 0.3, (B, max_t)), 1)
+    gt = views(centers, edge, heading)
+    pad = np.arange(max_t)[None, :] >= gt_len[:, None]
+    other = views(rng.uniform(0, 0.01, (B, max_t, 2)), edge, heading)
+    gt = np.where(pad[..., None, None] & (rng.uniform(size=B) < 0.25)[:, None, None, None],
+                  other, np.where(pad[..., None, None], 0.0, gt))
+    rows = np.arange(B)
+    goal = gt_len - 1
+    dup = rng.uniform(size=B) < 0.05  # the goal's corners 1 and 2 coincide
+    gt[rows[dup], goal[dup], 2] = gt[rows[dup], goal[dup], 1]
+
+    j = rng.integers(0, gt_len)
+    kind = rng.integers(0, 10, B)
+    corners = gt[rows, j] + rng.normal(0, 1.5e-4, (B, 1, 2))
+    corners = np.where((kind == 4)[:, None, None], gt[rows, goal], corners)
+    corners = np.where((kind == 5)[:, None, None], gt[rows, j], corners)
+    anywhere = views(rng.uniform(0, 0.01, (B, 2)), edge[:, 0], heading[:, 0])
+    corners = np.where((kind == 6)[:, None, None], anywhere, corners)
+    point = corners[:, :1].repeat(4, 1)
+    line = corners[:, :1] + np.linspace(0, 1, 4)[None, :, None] * (corners[:, 2:3] - corners[:, :1])
+    corners = np.where((kind == 7)[:, None, None],
+                       np.where((rows % 2 == 0)[:, None, None], point, line), corners)
+    tiny = views(corners.mean(1), rng.uniform(1e-7, 2e-5, B), heading[:, 0])
+    corners = np.where((kind == 8)[:, None, None], tiny, corners)
+    corners = np.where((kind == 9)[:, None, None], corners + 0.02, corners)
+    order = rng.uniform(size=B) < 0.2
+    corners[order] = corners[order][:, rng.permutation(4)]
+    ended = rng.uniform(size=B) < 0.2
+
+    def dev(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(device)
+
+    return (dev(corners, torch.float32), dev(ended, torch.bool),
+            dev(gt, torch.float32), dev(gt_len, torch.int64))
 
 
 def make_maps(device):
@@ -1299,6 +1370,81 @@ def phase_grad_kernel(card):
                 plain_ms=plain[0], bound_ms=bound_ms, call_ms=call_ms, live_items=live,
                 ms_launches_recorded=[cold_rec, 50],
                 hot_ms_launches_recorded=[hot_rec, 50])
+    return rec
+
+
+#: B of the teacher oracle: a rollout step of the LSTM recipe, and of the
+#: production preset and the validation cell; 40 is on no path and shows
+#: that the time does not grow with B (one block an item)
+ORACLE_BATCHES = (4, 16, 40)
+ORACLE_MAX_T = 12  # --max_gt_len's default
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def phase_oracle_kernel(card):
+    """The teacher oracle's kernel (``csrc/teacher_oracle.cu``) against
+    ``teacher_action_batch_plain`` on the card at ORACLE_BATCHES,
+    max_gt_len ORACLE_MAX_T, in both feedback modes: every output bit-equal
+    and one launch a call. Then its device time, cold (cycling through input
+    copies past the L2) and hot, beside its byte bound (each input byte read
+    once, 16 bytes an item written), the plain version's device time and
+    kernels a call, and both wall times a call back to back (the plain
+    version's is its host's)."""
+    import torch
+
+    from avdn_tpu_torch.sim.oracle import teacher_action_batch, teacher_action_batch_plain
+
+    rec = {}
+    for B in ORACLE_BATCHES:
+        for tf in (True, False):
+            args = oracle_inputs(B, ORACLE_MAX_T, SEED + B, "cuda")
+            before = teacher_action_batch.launches
+            got = teacher_action_batch(*args, tf)
+            want = teacher_action_batch_plain(*args, tf)
+            torch.cuda.synchronize()
+            if teacher_action_batch.launches - before != 1:
+                fail(f"oracle B={B}: {teacher_action_batch.launches - before} launches")
+            for k in ("waypoint_ratio", "altitude", "progress"):
+                if not _same_bits(got[k], want[k]):
+                    fail(f"oracle B={B} teacher_forcing={tf}: {k} differs from the "
+                         "plain version's")
+        set_bytes = sum(t.numel() * t.element_size() for t in args) + 16 * B
+        n_copies = -(-COLD_BYTES // set_bytes)
+        copies = [t.expand(n_copies, *t.shape).contiguous() for t in args]
+        turn = itertools.cycle(range(n_copies))
+
+        def cold():
+            i = next(turn)
+            return teacher_action_batch(*(c[i] for c in copies), True)
+
+        hot_ms, hot_rec = kernel_time_ms(lambda: teacher_action_batch(*args, True))
+        cold_ms, cold_rec = kernel_time_ms(cold)
+        plain = device_time_ms(lambda: teacher_action_batch_plain(*args, True), n=5)
+        if plain is None:
+            fail("torch.profiler recorded no kernel of the plain oracle")
+        call_ms = cuda_time_ms(lambda: teacher_action_batch(*args, True))
+        plain_call_ms = cuda_time_ms(lambda: teacher_action_batch_plain(*args, True),
+                                     n=5, trials=3)
+        del copies, turn
+        bound_ms = set_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"[oracle] B={B} max_gt_len={ORACLE_MAX_T}: bit-equal to the plain version "
+            f"in both modes, 1 launch a call | device time cold {cold_ms * 1e3} us "
+            f"({cold_rec} of 50 launches recorded), bound {bound_ms * 1e3} us (bytes, "
+            f"HBM: {set_bytes} B; the launch's own latency is the real floor) | hot (L2) "
+            f"{hot_ms * 1e3} us ({hot_rec} of 50) | plain {plain[0] * 1e3} us of device "
+            f"time in {plain[1]:g} kernels a call, wall {plain_call_ms * 1e3} us a call "
+            f"| kernel wall a call back to back {call_ms * 1e3} us | {card}")
+        rec[str(B)] = dict(ms=cold_ms, hot_ms=hot_ms, bound_ms=bound_ms, bytes=set_bytes,
+                           plain_ms=plain[0], plain_kernels=plain[1],
+                           plain_call_ms=plain_call_ms, call_ms=call_ms,
+                           ms_launches_recorded=[cold_rec, 50],
+                           hot_ms_launches_recorded=[hot_rec, 50])
     return rec
 
 
@@ -2934,6 +3080,7 @@ def main() -> None:
     done("device + build")
     krec = phase_kernels(card)
     grec = phase_grad_kernel(card)
+    orec = phase_oracle_kernel(card)
     done("kernels")
     nav, items, maps, launches = phase_slice(card)
     from avdn_tpu_torch.utils.debug import format_memory_census
@@ -3023,6 +3170,22 @@ def main() -> None:
         "train_step_production": prod_summary,
         "train_step_lstm": lstm_summary,
         "train_step_dp": dp_summary,
+    }, {
+        "name": "teacher_oracle",
+        "route": "cuda",
+        "source": "avdn_tpu_torch/csrc/teacher_oracle.cu",
+        "replaces": ("none: avdn_tpu/sim/oracle.py:teacher_action under vmap, which "
+                     "XLA fuses; the port's teacher_action_batch_plain"),
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": orec["16"]["ms"],
+        "ms_launches_recorded": orec["16"]["ms_launches_recorded"],
+        "plain_ms": orec["16"]["plain_ms"],
+        "bound_ms": orec["16"]["bound_ms"],
+        "bound_by": "bytes (the launch latency in practice)",
+        "library_ms": None,
+        "shape": [16, ORACLE_MAX_T, 4, 2],
+        "by_batch": orec,
     }]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ from avdn_tpu.sim import render as jrender
 from avdn_tpu_torch.geometry import quad
 from avdn_tpu_torch.geometry.transforms import get_direction
 from avdn_tpu_torch.sim.dynamics import move_view_corners_batch
-from avdn_tpu_torch.sim.oracle import teacher_action_batch
+from avdn_tpu_torch.sim.oracle import teacher_action_batch, teacher_action_batch_plain
 from avdn_tpu_torch.sim.render import render_batch
 
 DEG_TO_M = 11.13e4
@@ -120,10 +120,17 @@ def test_move_view_corners_batch():
     np.testing.assert_allclose(gd.numpy(), np.asarray(wd), atol=1e-5)
 
 
-@pytest.mark.parametrize("teacher_forcing", [True, False])
-def test_teacher_action_batch(teacher_forcing):
+@pytest.mark.parametrize("teacher_forcing, oracle, Tg", [
+    pytest.param(True, teacher_action_batch, 6, id="True"),
+    pytest.param(False, teacher_action_batch, 6, id="False"),
+    pytest.param(True, teacher_action_batch_plain, 6, id="plain-True"),
+    pytest.param(False, teacher_action_batch_plain, 6, id="plain-False"),
+    pytest.param(True, teacher_action_batch, 49, id="max_gt_len49-True"),
+    pytest.param(False, teacher_action_batch_plain, 49, id="plain-max_gt_len49-False"),
+])
+def test_teacher_action_batch(teacher_forcing, oracle, Tg):
     rng = np.random.default_rng(4)
-    B, Tg = 32, 6
+    B = 32
     gt = np.zeros((B, Tg, 4, 2), np.float32)
     gt_len = rng.integers(1, Tg + 1, B)
     for i in range(B):
@@ -137,12 +144,31 @@ def test_teacher_action_batch(teacher_forcing):
     want = joracle.teacher_action_batch(jnp.asarray(corners), jnp.asarray(ended),
                                         jnp.asarray(gt), jnp.asarray(gt_len),
                                         teacher_forcing)
-    got = teacher_action_batch(t(corners), t(ended), t(gt), t(gt_len), teacher_forcing)
+    got = oracle(t(corners), t(ended), t(gt), t(gt_len), teacher_forcing)
     for k in ("waypoint_ratio", "altitude", "progress"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-5,
                                    err_msg=k)
     assert (np.asarray(want["progress"]) > 0.5).any()
     assert np.abs(np.asarray(want["waypoint_ratio"])).max() > 0.1
+
+
+def test_teacher_action_batch_cpu_takes_the_plain_path():
+    """CPU tensors take the plain version (the same bits, no launch); a
+    tensor elsewhere than on the CPU goes to the kernel's checks, which
+    refuse what is not on a CUDA device: no fallback."""
+    import chip_smoke
+
+    args = chip_smoke.oracle_inputs(16, 12, 3, "cpu")
+    before = teacher_action_batch.launches
+    for tf in (True, False):
+        got = teacher_action_batch(*args, tf)
+        want = teacher_action_batch_plain(*args, tf)
+        for k in ("waypoint_ratio", "altitude", "progress"):
+            assert torch.equal(got[k], want[k]), k
+    assert teacher_action_batch.launches == before == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        teacher_action_batch(args[0].to("meta"), *args[1:], True)
+    assert teacher_action_batch.launches == 0
 
 
 def test_render_batch_straddling_border():
