@@ -18,8 +18,11 @@ kernel and bias to it (float32 parameters).
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import copy
 import dataclasses
+import threading
 from typing import Dict, List
 
 import torch
@@ -223,6 +226,8 @@ class Conv2d(nn.Conv2d):
 BN_MOMENTUM = 0.9
 
 _frozen_stats = 0
+_remat = 0
+_count_lock = threading.Lock()  # Darknet.graph_calls: a tower may be called from several threads
 
 
 @contextlib.contextmanager
@@ -231,13 +236,28 @@ def frozen_running_stats():
     batch's statistics but leaves the running ones as they are: a
     rematerialised step recomputes its tower in the backward pass, and its
     forward already updated them once (flax's functional state is updated
-    once per call, whatever is recomputed)."""
+    once per call, whatever is recomputed). A :class:`Darknet` call inside
+    runs eager: its graphs capture the update."""
     global _frozen_stats
     _frozen_stats += 1
     try:
         yield
     finally:
         _frozen_stats -= 1
+
+
+@contextlib.contextmanager
+def rematerialising():
+    """Inside, a train-mode :class:`Darknet` call runs eager
+    (``rollout/engine.py:rematerialised`` enters it around the checkpoint):
+    a graphed call keeps every activation its backward reads, which the
+    recompute is there to drop."""
+    global _remat
+    _remat += 1
+    try:
+        yield
+    finally:
+        _remat -= 1
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -334,6 +354,23 @@ class Darknet(nn.Module):
     ``folded=True`` builds the eval-inference variant: every conv carries a
     bias and no BatchNorm modules exist — load it with the state dict of
     :func:`fold_darknet_params` (running stats folded into the conv weights).
+
+    A train-mode call on the card replays CUDA graphs: one captured forward
+    (the BatchNorm running statistics updated in place, as eager) and one
+    captured backward, two graph launches where eager launches ~1,000
+    kernels, each with ~50 µs of host set-up. The pair is captured at the
+    first call of each input shape (:class:`_TrainGraphs`). A train step
+    keeps all its calls' activations until its backward, so each live call
+    copies the activations its backward reads into an arena of its own
+    after its forward, and back before its backward: a few multi-tensor
+    copies a call, where a pair of graphs per live call took a capture
+    each (~0.1–0.5 s of host apiece) at the first step. A call runs eager, the
+    same kernels launched one by one, where a graph cannot hold its
+    semantics (:meth:`_eager_reason`): in eval mode, without grad, inside
+    ``parallel.batch.global_batch`` (its all-reduce cannot be captured),
+    inside :func:`frozen_running_stats` or :func:`rematerialising`, and on
+    the CPU. ``graph_calls`` counts captures, replays and eager calls by
+    reason.
     """
 
     def __init__(self, cfg: DarknetConfig, folded: bool = False,
@@ -365,32 +402,256 @@ class Darknet(nn.Module):
                                    "yolo"):
                 raise ValueError(f"unsupported block type: {b['type']}")
             self.module_list.append(seq)
+        self.graph_calls = collections.Counter()
+        self._train_graphs = _TrainGraphs(self)
+
+    def _eager_reason(self, x):
+        """Why this call runs eager, or None where it replays a graph."""
+        if not self.training:
+            return "eval"
+        if not torch.is_grad_enabled() or not (
+                x.requires_grad or any(p.requires_grad for p in self.parameters())):
+            return "no_grad"
+        if batch.active():
+            return "global_batch"
+        if _frozen_stats:
+            return "frozen_stats"
+        if _remat:
+            return "remat"
+        if not x.is_cuda:
+            return "cpu"
+        return None
 
     def forward(self, x):
+        why = self._eager_reason(x)
+        with _count_lock:
+            self.graph_calls["replay" if why is None else "eager." + why] += 1
         with span("models.darknet"):
-            x = x.permute(0, 3, 1, 2)  # NHWC views → NCHW
-            outputs = []
-            for b, mod in zip(self._blocks, self.module_list):
-                t = b["type"]
-                if t == "convolutional":
-                    x = mod(x)
-                elif t == "upsample":
-                    x = F.interpolate(x, scale_factor=int(b["stride"]), mode="nearest")
-                elif t == "route":
-                    x = torch.cat([outputs[int(v)] for v in b["layers"].split(",")],
-                                  dim=1)
-                elif t == "shortcut":
-                    x = outputs[-1] + outputs[int(b["from"])]
-                elif t == "maxpool":
-                    k, s = int(b["size"]), int(b["stride"])
-                    # TF "SAME" padding with -inf, as flax's max_pool
-                    pads = []
-                    for n in (x.shape[3], x.shape[2]):
-                        total = max((-(-n // s) - 1) * s + k - n, 0)
-                        pads += [total // 2, total - total // 2]
-                    x = F.max_pool2d(F.pad(x, pads, value=float("-inf")), k, s)
-                outputs.append(x)  # yolo: feature-extraction mode, identity
-            return x.flatten(2)
+            if why is not None:
+                return self._forward(x)
+            return self._train_graphs.call(self, x)
+
+    def _forward(self, x):
+        x = x.permute(0, 3, 1, 2)  # NHWC views → NCHW
+        outputs = []
+        for b, mod in zip(self._blocks, self.module_list):
+            t = b["type"]
+            if t == "convolutional":
+                x = mod(x)
+            elif t == "upsample":
+                x = F.interpolate(x, scale_factor=int(b["stride"]), mode="nearest")
+            elif t == "route":
+                x = torch.cat([outputs[int(v)] for v in b["layers"].split(",")],
+                              dim=1)
+            elif t == "shortcut":
+                x = outputs[-1] + outputs[int(b["from"])]
+            elif t == "maxpool":
+                k, s = int(b["size"]), int(b["stride"])
+                # TF "SAME" padding with -inf, as flax's max_pool
+                pads = []
+                for n in (x.shape[3], x.shape[2]):
+                    total = max((-(-n // s) - 1) * s + k - n, 0)
+                    pads += [total // 2, total - total // 2]
+                x = F.max_pool2d(F.pad(x, pads, value=float("-inf")), k, s)
+            outputs.append(x)  # yolo: feature-extraction mode, identity
+        return x.flatten(2)
+
+
+class _TrainGraphs:
+    """The captured graphs of one :class:`Darknet`'s train-mode calls, one
+    pair by key (the input's shape, strides, dtype, device and whether it
+    needs a gradient), and the arenas that hold each live call's saved
+    activations between its forward and its backward. A call takes the
+    first free arena of its key, or allocates one; the arena is free again
+    once the call's backward has replayed, or once autograd drops the call's
+    graph without one. So the K micro-batches of ``--grad_accum`` reuse one
+    step's arenas, whatever a step is. The graphs read and write the
+    parameters and buffers in place: where one of them is replaced (another
+    address, or ``requires_grad`` flipped) the graphs are dropped and
+    captured again, a live call's arena kept until its call has ended."""
+
+    def __init__(self, net: "Darknet"):
+        self.graphs: Dict[tuple, _Graph] = {}
+        self.state = None
+        # the tensors are read from their modules' dicts at each call, which
+        # sees a replaced one (Module.parameters() walks the tree: ~10x slower)
+        self.param_dicts = [m._parameters for m in net.modules() if m._parameters]
+        self.tensor_dicts = self.param_dicts + [m._buffers for m in net.modules()
+                                                if m._buffers]
+
+    def __deepcopy__(self, memo):
+        """A copy of the module captures graphs of its own."""
+        new = copy.copy(self)
+        new.graphs, new.state = {}, None
+        new.param_dicts = copy.deepcopy(self.param_dicts, memo)
+        new.tensor_dicts = copy.deepcopy(self.tensor_dicts, memo)
+        return new
+
+    def call(self, net: "Darknet", x):
+        params = [p for d in self.param_dicts for p in d.values()
+                  if p is not None and p.requires_grad]
+        state = [(t.data_ptr(), t.requires_grad)
+                 for d in self.tensor_dicts for t in d.values() if t is not None]
+        if state != self.state:
+            self.graphs, self.state = {}, state
+        key = (tuple(x.shape), x.stride(), x.dtype, x.device, x.requires_grad)
+        graph = self.graphs.get(key)
+        if graph is None:
+            with span("models.darknet.capture"):
+                _warm_up(net, x, self.param_dicts)
+                graph = self.graphs[key] = _Graph(net, x, self.param_dicts)
+            with _count_lock:
+                net.graph_calls["capture"] += 1
+        arena = next((a for a in graph.arenas if a.free), None)
+        if arena is None:
+            arena = _Arena(graph.saved)
+            graph.arenas.append(arena)
+        return _Replay.apply(graph, arena, x, *params)
+
+
+@contextlib.contextmanager
+def _own_leaves(param_dicts):
+    """The trainable parameters swapped, in their modules, for new leaves on
+    the same memory. A capture's autograd graph then ends in accumulators of
+    its own, made on the capture stream: the parameters' own accumulators,
+    which the live calls' graphs keep, belong to the stream of the first
+    call, and autograd's synchronisation with it would break the capture."""
+    swapped = [(d, k, p) for d in param_dicts for k, p in d.items()
+               if p is not None and p.requires_grad]
+    for d, k, p in swapped:
+        d[k] = p.detach().requires_grad_()
+    try:
+        yield [d[k] for d, k, _ in swapped]
+    finally:
+        for d, k, p in swapped:
+            d[k] = p
+
+
+def _warm_up(net: "Darknet", x, param_dicts):
+    """One eager forward and backward on a side stream before a key's
+    capture (cuDNN's and autograd's lazy set-up cannot run inside a
+    capture), as ``torch.cuda.make_graphed_callables`` does; the running
+    statistics are put back and the gradients thrown away."""
+    saved = [b.clone() for b in net.buffers()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), _own_leaves(param_dicts) as leaves:
+        xw = x.detach().requires_grad_(x.requires_grad)
+        torch.autograd.grad(net._forward(xw).sum(),
+                            ([xw] if x.requires_grad else []) + leaves, allow_unused=True)
+        for b, s in zip(net.buffers(), saved):
+            b.copy_(s)
+    torch.cuda.current_stream().wait_stream(side)
+
+
+class _Graph:
+    """A key's two graphs. The forward reads the static input ``x`` and
+    writes the static output ``out``, the running statistics and the
+    activations its backward reads (``saved``: what autograd saved while
+    the forward was captured, the parameters aside); the backward reads
+    ``saved`` and the static output gradient ``gout`` and writes ``grads``,
+    for the static input where it needs one and for each parameter that
+    does. Both share a memory pool of their own. Capture records the
+    kernels without running them; ``thread_local``: the prefetch thread may
+    allocate and synchronise while a capture is on.
+    One pair serves every live call of the key: each call's ``saved`` waits
+    in an arena of its own between its forward and its backward."""
+
+    def __init__(self, net: "Darknet", x, param_dicts):
+        self.x = torch.empty_like(x).requires_grad_(x.requires_grad)
+        self.arenas: List[_Arena] = []
+        pool = torch.cuda.graph_pool_handle()
+        self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        saved: Dict[tuple, torch.Tensor] = {}
+
+        def keep(t):
+            if not any(t is leaf for leaf in leaves) and t.numel():
+                saved.setdefault((t.data_ptr(), t.dtype, t.shape, t.stride()), t)
+            return t
+
+        with _own_leaves(param_dicts) as leaves, \
+                torch.autograd.graph.saved_tensors_hooks(keep, lambda t: t), \
+                torch.cuda.graph(self.fwd, pool, capture_error_mode="thread_local"):
+            out = net._forward(self.x)
+        self.saved = list(saved.values())
+        self.gout = torch.empty_like(out)
+        with torch.cuda.graph(self.bwd, pool, capture_error_mode="thread_local"):
+            # d/d out of (out · gout).sum() is gout, bit for bit; a scalar
+            # root spares autograd's check of explicit output gradients,
+            # which imports sympy at its first use (~3 s on the card's host)
+            grads = torch.autograd.grad((out * self.gout).sum(),
+                                        ([self.x] if x.requires_grad else []) + leaves,
+                                        allow_unused=True)
+        self.out = out.detach()
+        self.grads = grads if x.requires_grad else (None, *grads)
+
+
+def _copy(dst: List[torch.Tensor], src: List[torch.Tensor]):
+    """``dst[i].copy_(src[i])`` for all i, in a few multi-tensor launches
+    (one group per dtype: the fused path takes one dtype)."""
+    groups = collections.defaultdict(lambda: ([], []))
+    for d, s in zip(dst, src):
+        groups[d.dtype][0].append(d)
+        groups[d.dtype][1].append(s)
+    for d, s in groups.values():
+        torch._foreach_copy_(d, s)
+
+
+class _Arena:
+    """One live call's copy of its graph's ``saved`` activations."""
+
+    def __init__(self, saved: List[torch.Tensor]):
+        self.free = True
+        self.bufs = [torch.empty_like(t) for t in saved]
+
+
+class _Lease:
+    """An arena held by one live call: given back by the call's backward, or
+    when autograd drops the call's graph (and with it this lease) without
+    one."""
+
+    def __init__(self, arena: _Arena):
+        self.arena = arena
+        arena.free = False
+
+    def take(self) -> _Arena:
+        arena, self.arena = self.arena, None
+        if arena is None:
+            raise RuntimeError("a graphed Darknet call's backward ran twice; "
+                               "retain_graph is not supported")
+        return arena
+
+    def __del__(self):
+        if self.arena is not None:
+            self.arena.free = True
+
+
+class _Replay(torch.autograd.Function):
+    """A train-mode call through ``graph``, its activations kept in
+    ``arena``. The output and the gradients are new tensors each call (the
+    gradients through an exact ``· 1.0``), so autograd may keep or sum them
+    in place whatever the graph replays next."""
+
+    @staticmethod
+    def forward(ctx, graph, arena, x, *params):
+        graph.x.copy_(x)
+        graph.fwd.replay()
+        _copy(arena.bufs, graph.saved)
+        ctx.graph, ctx.lease = graph, _Lease(arena)
+        return graph.out.clone()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        arena, graph = ctx.lease.take(), ctx.graph
+        _copy(graph.saved, arena.bufs)
+        arena.free = True
+        graph.gout.copy_(gout)
+        graph.bwd.replay()
+        gx, *grads = graph.grads
+        fresh = iter(torch._foreach_mul([g for g in grads if g is not None], 1.0))
+        return (None, None, None if gx is None else gx.clone(),
+                *(None if g is None else next(fresh) for g in grads))
 
 
 def fold_darknet_params(cfg: DarknetConfig, state_dict: Dict[str, torch.Tensor],

@@ -32,7 +32,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from avdn_tpu_torch.models import et_fast
-from avdn_tpu_torch.models.darknet import frozen_running_stats
+from avdn_tpu_torch.models.darknet import frozen_running_stats, rematerialising
 from avdn_tpu_torch.models.lstm import heading_radians, init_lstm_state
 from avdn_tpu_torch.ops.losses import step_losses
 from avdn_tpu_torch.ops.saliency import saliency_head_reductions, saliency_upsample
@@ -482,6 +482,8 @@ def rematerialised(fn: Callable, policy: str, generator: torch.Generator):
     ``generator`` restored to the state the forward started from (and
     leaves ``generator`` as it found it), and it does not update the
     BatchNorm running statistics a second time (``frozen_running_stats``).
+    Darknet calls inside run eager (``rematerialising``): a replayed graph
+    would keep the activations the recompute is there to drop.
     Nothing in ``fn`` may sync with the host or draw other random numbers."""
     from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
@@ -508,8 +510,9 @@ def rematerialised(fn: Callable, policy: str, generator: torch.Generator):
             finally:
                 generator.set_state(outer)
 
-        return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False,
-                          **kw)
+        with rematerialising():
+            return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False,
+                              **kw)
 
     return call
 
